@@ -1,0 +1,320 @@
+"""Smoke test of the PyTorch/CUDA port (`dmosopt_tpu_torch`) on one GPU.
+
+Run from the root of a checkout, with one CUDA device visible:
+
+    python3 chip_smoke.py
+
+It imports nothing of JAX nor of the JAX package. Phases, in order:
+
+1. the card's name and power limit (nvidia-smi), and a check that TF32
+   is off for float32 matrix products;
+2. each hand-written kernel (the Triton SBX and polynomial-mutation
+   kernels) is built from the checkout, launched at the main path's
+   shape (100, 30) and at (65536, 256), and held against its plain
+   PyTorch version on the same inputs on the card; its device time per
+   launch, the plain version's, the bytes it must move and its
+   memory-bandwidth bound are printed;
+3. direct NSGA-II on ZDT1 (pop 100, dim 30, 300 generations) on the
+   card, held to the reference test's front oracle;
+4. the README quick start through `dmosopt_tpu_torch.run()` at full
+   width (ZDT1 dim 30, pop 200, 100 generations, 3 epochs, 3 initial
+   points per dimension, `gpr` defaults), with the kernel launch
+   counters reset just before it and read just after, and its result
+   checked: archive size, finite values, a non-dominated returned set
+   that is closer to the front than the initial design.
+
+The line before the last is a JSON object ``{"kernels": [...]}``; the
+last is ``{"ok": true, "device": {...}}``. Any failed check raises, so
+the script then exits non-zero without the ``ok`` line. Without a CUDA
+device it exits with code 2 and prints no result.
+"""
+
+import json
+import os
+import subprocess
+import sys
+import time
+
+# tolerances of the kernel-vs-plain comparison (float32): the kernels
+# compute x**pw as exp2(pw*log2(x)) with the hardware's approximate
+# exp2/log2 (relative error ~1e-7) and may contract a*b+c into one FMA.
+# Mutation children are p + (ub-lb)*delta with |delta| <= 1, so their
+# error stays near 1e-7. An SBX child is 0.5*((1-beta)*p1 + (1+beta)*p2)
+# with beta up to ~3e3 as u -> 1, whose two products round at ~beta*ulp
+# before they cancel, so SBX is held to 1e-4.
+ATOL = {"mutation": 1e-5, "sbx": 1e-4}
+# published H100 SXM peaks (NVIDIA data sheet), for the bound: HBM3
+# bandwidth and float32 (non-tensor-core) FLOP rate
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOPS_PER_S = 67e12
+# floating-point operations per element of each kernel (counted from
+# the kernel source: pw, the power(s), the select, the children, clips)
+FLOPS_PER_ELEMENT = {"mutation": 20, "sbx": 25}
+SHAPES = {"main": (100, 30), "large": (65536, 256)}
+
+
+def _smi_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout
+    return out.strip().splitlines()[0]
+
+
+def _device_ms_per_call(torch, fn, calls, rounds=5):
+    """Device time of one call of ``fn``: the median over ``rounds`` of
+    the time of ``calls`` back-to-back calls between one pair of CUDA
+    events, divided by ``calls`` (an event pair around each call would
+    add its own few microseconds to a kernel of about that length). Each
+    round is queued behind a sleep kernel, so the host's launch overhead
+    opens no gaps between the calls on the device; the check below fails
+    the run if the sleep ended before the host had queued them all (it
+    does when the stream's launch queue fills, so ``calls`` times the
+    launches per call must stay in the hundreds)."""
+    fn()
+    torch.cuda.synchronize()
+    event = lambda: torch.cuda.Event(enable_timing=True)  # noqa: E731
+    per_call = []
+    for _ in range(rounds):
+        before, after, start, end = event(), event(), event(), event()
+        t0 = time.perf_counter()
+        before.record()
+        torch.cuda._sleep(300_000_000)
+        after.record()
+        start.record()
+        for _ in range(calls):
+            fn()
+        end.record()
+        enqueue_ms = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+        sleep_ms = before.elapsed_time(after)
+        assert enqueue_ms < sleep_ms, ("timing window not covered", enqueue_ms, sleep_ms)
+        per_call.append(start.elapsed_time(end) / calls)
+    return sorted(per_call)[rounds // 2]
+
+
+def _kernel_inputs(torch, name, B, n, seed):
+    """Operands the main path hands the kernel, in its layout: uniforms,
+    parents in the unit box, the bounds as the two (strided) columns of
+    an (n, 2) tensor, di of 20 (mutation) or 1 (SBX), rate 1/n."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    rand = lambda *s: torch.rand(s, generator=g, device="cuda")  # noqa: E731
+    bounds = torch.stack(
+        [torch.zeros(n, device="cuda"), torch.ones(n, device="cuda")], dim=1
+    )
+    xlb, xub = bounds[:, 0], bounds[:, 1]
+    if name == "mutation":
+        di = torch.full((n,), 20.0, device="cuda")
+        rate = torch.full((), 1.0 / n, device="cuda")
+        return (rand(B, n), rand(B, n), di, xlb, xub, rate)
+    di = torch.full((n,), 1.0, device="cuda")
+    return (rand(B, n), rand(B, n), rand(B, n), di, xlb, xub)
+
+
+def check_kernels(torch, V):
+    """Phase 2: every kernel against its plain version, timed."""
+    from dmosopt_tpu_torch.ops import _variation_kernels as K
+
+    kernels = {
+        "mutation": (K.launch_mutation, V._mutation_core, 72),
+        "sbx": (K.launch_sbx, V._sbx_core, 90),
+    }
+    report = {}
+    for name, (kernel, plain, line) in kernels.items():
+        rows = {}
+        for label, (B, n) in SHAPES.items():
+            args = _kernel_inputs(torch, name, B, n, seed=B + n)
+            got = kernel(*args)
+            want = plain(*args)
+            torch.cuda.synchronize()
+            got = got if isinstance(got, tuple) else (got,)
+            want = want if isinstance(want, tuple) else (want,)
+            err = max(float((a - b).abs().max()) for a, b in zip(got, want))
+            assert all(bool(torch.isfinite(a).all()) for a in got), name
+            assert err <= ATOL[name], (name, label, err, ATOL[name])
+            # one launch per kernel call (100 queued per round); the plain
+            # versions launch 15-25 (12 calls: about the same)
+            ms = _device_ms_per_call(torch, lambda: kernel(*args), calls=100)
+            plain_ms = _device_ms_per_call(torch, lambda: plain(*args), calls=12)
+            # each input read once, each output written once (a strided
+            # bounds column is n words read)
+            nbytes = sum(t.numel() * t.element_size() for t in (*args, *got))
+            flops = FLOPS_PER_ELEMENT[name] * B * n
+            bytes_ms = 1e3 * nbytes / HBM_BYTES_PER_S
+            flops_ms = 1e3 * flops / F32_FLOPS_PER_S
+            rows[label] = {
+                "shape": [B, n], "max_abs_err": err, "ms": ms,
+                "plain_ms": plain_ms, "bytes": nbytes,
+                "gb_per_s": nbytes / (ms * 1e-3) / 1e9,
+                "bound_ms": max(bytes_ms, flops_ms),
+                "bound_by": "bytes" if bytes_ms >= flops_ms else "operations",
+            }
+            print(
+                f"kernel {name} {B}x{n}: max_abs_err {err:.3e} "
+                f"(atol {ATOL[name]:g}), {ms * 1e3:.2f} us/launch, plain "
+                f"{plain_ms * 1e3:.2f} us, {nbytes} B, "
+                f"{rows[label]['gb_per_s']:.1f} GB/s, bound "
+                f"{rows[label]['bound_ms'] * 1e3:.3f} us ({rows[label]['bound_by']})"
+            )
+        report[name] = {
+            "name": name,
+            "route": "triton",
+            "source": "dmosopt_tpu_torch/ops/_variation_kernels.py",
+            "replaces": f"dmosopt_tpu/ops/variation.py:{line}",
+            "rows": rows,
+        }
+    return report
+
+
+def direct_ea(torch):
+    """Phase 3: NSGA-II on ZDT1 with the reference test's oracle."""
+    import numpy as np
+
+    from dmosopt_tpu_torch import sampling
+    from dmosopt_tpu_torch.benchmarks.zdt import distance_to_front, zdt1, zdt1_pareto
+    from dmosopt_tpu_torch.optimizers.base import run_ea_loop
+    from dmosopt_tpu_torch.optimizers.nsga2 import NSGA2
+
+    popsize, dim, gens = 100, 30, 300
+    bounds = np.stack([np.zeros(dim), np.ones(dim)], axis=1)
+    x0 = sampling.lh(popsize * 2, dim, 1)
+    y0 = zdt1(torch.as_tensor(x0, device="cuda")).cpu().numpy()
+    opt = NSGA2(popsize=popsize, nInput=dim, nOutput=2, model=None)
+    opt.initialize_strategy(x0, y0, bounds, random=1)
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state = run_ea_loop(opt, opt.state, gen, gens, zdt1)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    y = state.population_obj.cpu().numpy()
+    dists = distance_to_front(y, zdt1_pareto(1000))
+    on = y[dists <= 0.01]
+    print(
+        f"direct EA: {gens} generations in {dt:.3f} s ({gens / dt:.1f} gens/s), "
+        f"{len(on)} of {popsize} within 0.01 of the front"
+    )
+    assert len(on) >= 30, len(on)
+    assert on[:, 0].max() - on[:, 0].min() > 0.5
+
+
+def quick_start(torch, V):
+    """Phase 4: the README quick start through run(); returns the
+    kernel launch counts of this run."""
+    import numpy as np
+
+    import dmosopt_tpu_torch
+    from dmosopt_tpu_torch.benchmarks.zdt import distance_to_front, zdt1, zdt1_pareto
+    from dmosopt_tpu_torch.driver import dopt_dict
+
+    dim, pop, gens, n_initial, n_epochs = 30, 200, 100, 3, 3
+    params = {
+        "opt_id": "zdt1_quick_start",
+        "obj_fun": zdt1,
+        "torch_objective": True,
+        "space": {f"x{i}": [0.0, 1.0] for i in range(dim)},
+        "problem_parameters": {},
+        "objective_names": ["f1", "f2"],
+        "population_size": pop,
+        "num_generations": gens,
+        "n_initial": n_initial,
+        "n_epochs": n_epochs,
+        "optimizer_name": "nsga2",
+        "surrogate_method_name": "gpr",
+        "random_seed": 0,
+    }
+    V.reset_kernel_launches()
+    t0 = time.perf_counter()
+    best = dmosopt_tpu_torch.run(params, verbose=False)
+    wall = time.perf_counter() - t0
+    launches = dict(V.KERNEL_LAUNCHES)
+
+    dopt = dopt_dict["zdt1_quick_start"]
+    for s in dopt.epoch_stats:
+        print(
+            f"epoch {s['epoch']}: {s['epoch_s']:.3f} s, GP fit "
+            f"{s['train_s']:.3f} s ({s['objective']['n_steps']} Adam steps), "
+            f"EA {s['optimize_s']:.3f} s "
+            f"({s['n_generations'] / s['optimize_s']:.1f} gens/s)"
+        )
+    print(f"run(): {wall:.3f} s for {n_epochs} epochs")
+
+    n_gen = sum(s["n_generations"] for s in dopt.epoch_stats)
+    assert n_gen == n_epochs * gens, n_gen
+    assert launches == {"sbx": n_gen, "mutation": 2 * n_gen}, launches
+
+    x_all, y_all = dopt.optimizer_dict[0].get_evals()
+    n0 = n_initial * dim
+    n_resample = int(pop * dopt.resample_fraction)
+    # the JAX driver's epoch accounting: every epoch but the last enqueues
+    # its resample batch (driver.py:1428-1490); a batch is smaller only
+    # when its candidates duplicated archived points
+    assert x_all.shape[0] == n0 + (n_epochs - 1) * n_resample, x_all.shape
+    assert np.all(np.isfinite(x_all)) and np.all(np.isfinite(y_all))
+
+    y = np.column_stack([v for _, v in best[1]])
+    assert y.shape[0] > 0 and np.all(np.isfinite(y))
+    le = np.all(y[:, None, :] <= y[None, :, :], axis=2)
+    lt = np.any(y[:, None, :] < y[None, :, :], axis=2)
+    assert not np.any(le & lt), "returned set is dominated"
+    front = zdt1_pareto(1000)
+    d_best = float(np.median(distance_to_front(y, front)))
+    d_init = float(np.median(distance_to_front(y_all[:n0], front)))
+    print(
+        f"quick start: archive {x_all.shape[0]} rows, {y.shape[0]} returned; "
+        f"median distance to the front {d_best:.4f} (initial design {d_init:.4f})"
+    )
+    assert d_best < d_init, (d_best, d_init)
+    return launches
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 2
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from dmosopt_tpu_torch.ops import variation as V
+
+    print(_smi_line())
+    assert torch.backends.cuda.matmul.allow_tf32 is False
+    assert torch.get_float32_matmul_precision() == "highest"
+    print(
+        f"torch {torch.__version__} cuda {torch.version.cuda}; "
+        f"TF32 off for float32 matmul"
+    )
+
+    t0 = time.perf_counter()
+    report = check_kernels(torch, V)
+    print(f"kernels built and checked in {time.perf_counter() - t0:.1f} s")
+    direct_ea(torch)
+    launches = quick_start(torch, V)
+    assert "jax" not in sys.modules and "dmosopt_tpu" not in sys.modules
+
+    kernels = []
+    for name, rep in report.items():
+        main_row = rep["rows"]["main"]
+        kernels.append({
+            "name": rep["name"], "route": rep["route"], "source": rep["source"],
+            "replaces": rep["replaces"], "launches": launches[name],
+            "max_abs_err": max(r["max_abs_err"] for r in rep["rows"].values()),
+            "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
+            "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
+            "library_ms": None, "shape": main_row["shape"],
+            "large": rep["rows"]["large"],
+        })
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({
+        "ok": True,
+        "device": {
+            "platform": "gpu",
+            "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count(),
+        },
+    }))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

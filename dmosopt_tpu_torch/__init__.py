@@ -1,0 +1,39 @@
+"""dmosopt_tpu_torch: the PyTorch/CUDA port of dmosopt_tpu.
+
+A second package beside the JAX one, slice by slice, with the JAX package
+as its reference. This slice runs the MO-ASMO quick start — `run()` with
+NSGA-II against an exact-GP surrogate — on a CUDA device, with the SBX
+and polynomial-mutation kernels as Triton kernels (see
+`dmosopt_tpu_torch.ops.variation`). It imports neither jax nor
+dmosopt_tpu.
+"""
+
+__version__ = "0.1.0"
+
+from dmosopt_tpu_torch.datatypes import (  # noqa: F401
+    EpochResults,
+    EvalEntry,
+    EvalRequest,
+    OptProblem,
+    ParameterSpace,
+    StrategyState,
+)
+
+
+def run(dopt_params, **kwargs):
+    """Run a complete MO-ASMO optimization (see dmosopt_tpu_torch.driver.run)."""
+    from dmosopt_tpu_torch.driver import run as _run
+
+    return _run(dopt_params, **kwargs)
+
+
+def __getattr__(name):
+    if name in ("DistOptimizer", "dopt_init"):
+        from dmosopt_tpu_torch import driver
+
+        return getattr(driver, name)
+    if name == "DistOptStrategy":
+        from dmosopt_tpu_torch.strategy import DistOptStrategy
+
+        return DistOptStrategy
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

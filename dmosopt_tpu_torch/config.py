@@ -1,0 +1,58 @@
+"""Registry of shorthand names -> import paths, and string-path imports.
+
+Port of ``dmosopt_tpu/config.py`` (reference dmosopt/config.py:5-48). The
+registries name only what the port carries; any other shorthand is
+resolved as an import path and, failing that, raises
+`NotImplementedError`.
+"""
+
+import importlib
+import sys
+
+
+def import_object_by_path(path: str):
+    module_path, _, obj_name = path.rpartition(".")
+    if module_path in ("__main__", ""):
+        module = sys.modules["__main__"]
+    else:
+        module = importlib.import_module(module_path)
+    return getattr(module, obj_name)
+
+
+default_sampling_methods = {
+    "slh": "dmosopt_tpu_torch.sampling.slh",
+    "lh": "dmosopt_tpu_torch.sampling.lh",
+    "mc": "dmosopt_tpu_torch.sampling.mc",
+}
+
+default_optimizers = {
+    "nsga2": "dmosopt_tpu_torch.optimizers.nsga2.NSGA2",
+}
+
+default_surrogate_methods = {
+    "gpr": "dmosopt_tpu_torch.models.gp.GPR_Matern",
+}
+
+
+def as_tuple(value):
+    """Normalize a scalar-or-sequence config value (optimizer cycling takes
+    one name/kwargs dict or a sequence of them) to a tuple."""
+    from collections.abc import Sequence
+
+    if isinstance(value, Sequence) and not isinstance(value, (str, dict)):
+        return tuple(value)
+    return (value,)
+
+
+def resolve(name_or_path, registry):
+    """Resolve a shorthand or import path to an object; pass through callables."""
+    if callable(name_or_path):
+        return name_or_path
+    path = registry.get(name_or_path, name_or_path)
+    try:
+        return import_object_by_path(path)
+    except (ImportError, AttributeError) as e:
+        raise NotImplementedError(
+            f"component {name_or_path!r} (-> {path!r}) is not available "
+            f"in dmosopt_tpu_torch: {e}"
+        ) from e

@@ -1,0 +1,44 @@
+"""State carried across from the JAX package, as plain numpy.
+
+Builds the port's GP fit and NSGA-II state from dicts of numpy arrays,
+e.g. ``{k: np.asarray(v) for k, v in fit._asdict().items()}`` of a JAX
+`GPFit` or `NSGA2State`, so the same numbers can go through both
+packages. Only numpy crosses the boundary; nothing here imports JAX.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from dmosopt_tpu_torch.models.gp import GPFit
+from dmosopt_tpu_torch.optimizers.nsga2 import NSGA2State
+
+
+def _tensor(v, device):
+    a = np.array(v)  # a writable copy
+    if a.dtype == np.float64:
+        a = a.astype(np.float32)
+    return torch.as_tensor(a, device=device)
+
+
+def gp_fit_from_arrays(d: dict, device) -> GPFit:
+    """A `GPFit` on ``device`` from a dict of the JAX fit's fields. The
+    mesh-sharded fit's whitening factor (``whitened``) is not carried."""
+    d = {k: v for k, v in d.items() if v is not None and np.asarray(v).dtype != object}
+    if "whitened" in d:
+        raise NotImplementedError("a fit carrying `whitened` is not ported")
+    n_steps = d.pop("n_steps", None)
+    fit = GPFit(**{k: _tensor(v, device) for k, v in d.items()})
+    fit.n_steps = None if n_steps is None else int(n_steps)
+    return fit
+
+
+def nsga2_state_from_arrays(d: dict, device) -> NSGA2State:
+    """An `NSGA2State` on ``device`` from a dict of the JAX state's fields
+    (the rank becomes int32, the operator tags bool)."""
+    out = {k: _tensor(d[k], device) for k in NSGA2State.field_names()}
+    out["rank"] = out["rank"].to(torch.int32)
+    out["n_active"] = out["n_active"].to(torch.int32)
+    out["last_is_crossover"] = out["last_is_crossover"].to(torch.bool)
+    return NSGA2State(**out)

@@ -1,0 +1,518 @@
+"""MO-ASMO epoch engine.
+
+Port of ``dmosopt_tpu/moasmo.py`` (`xinit`, `train`, `optimize` with both
+branches, `_optimize_on_device`, `epoch`, `get_best`, `get_duplicates`,
+`remove_duplicates`), after reference `dmosopt/MOASMO.py`: initial design
+-> surrogate fit -> inner EA against the surrogate -> crowding-distance
+resample selection.
+
+When the objective is the surrogate, the inner loop runs on the
+optimizer's device: generate -> surrogate predict -> update, one
+generation after another, with the offspring of every generation kept on
+the device and copied to the host once at the end (the JAX package
+scans the same loop as one XLA program). Only the no-surrogate path
+yields to the caller per generation, because there the host evaluates.
+Epochs are still driven through the reference's suspended-generator
+protocol (MOASMO.py:248,422). The JAX engine's termination criteria,
+feasibility and sensitivity models, custom training, mean-variance
+optimization, surrogate refit, meshes and telemetry are not ported.
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Any, Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+from dmosopt_tpu_torch.config import (
+    default_optimizers,
+    default_sampling_methods,
+    default_surrogate_methods,
+    resolve,
+)
+from dmosopt_tpu_torch.datatypes import EpochResults
+from dmosopt_tpu_torch.models import Model
+from dmosopt_tpu_torch.ops import crowding_distance, sort_mo
+from dmosopt_tpu_torch.utils.prng import as_torch_generator
+
+
+# ------------------------------------------------------------------ helpers
+
+
+def get_duplicates(X, Y=None, eps: float = 1e-16) -> np.ndarray:
+    """Mark rows of X that duplicate a row of X (Y=None) or of Y, with
+    reference dmosopt/MOEA.py:426-437 semantics: the upper triangle
+    (including the diagonal) of the distance matrix is masked, so row i is
+    compared only against rows j < i. Exact float64 differences."""
+    from scipy.spatial.distance import cdist
+
+    X = np.asarray(X, dtype=np.float64)
+    Y = X if Y is None else np.asarray(Y, dtype=np.float64)
+    D = cdist(X, Y)
+    D[np.isnan(D)] = np.inf
+    iu = np.triu_indices(n=X.shape[0], m=Y.shape[0])
+    D[iu] = np.inf
+    return np.any(D <= eps, axis=1)
+
+
+def remove_duplicates(x, y, eps: float = 1e-16):
+    """Drop duplicate parameter rows (reference dmosopt/MOEA.py:439-443)."""
+    dup = get_duplicates(x, eps=eps)
+    return x[~dup], y[~dup]
+
+
+def _feasible_subset(c, *arrays):
+    """Subset companion arrays to rows where all constraints are positive;
+    when no row is feasible everything passes through unchanged (the
+    reference's `len(feasible) > 0` rule, MOASMO.py:501-508).
+    Returns (feasible_idx, subset_arrays)."""
+    if c is None:
+        return None, arrays
+    feasible = np.argwhere(np.all(np.asarray(c) > 0.0, axis=1)).ravel()
+    if len(feasible) == 0:
+        return feasible, arrays
+    return feasible, tuple(a[feasible] if a is not None else None for a in arrays)
+
+
+def _to_np(t: torch.Tensor) -> np.ndarray:
+    return t.detach().cpu().numpy()
+
+
+# ---------------------------------------------------------------- optimize
+
+
+def _surrogate_eval_fn(mdl: Model):
+    """A batch objective on device tensors from the fitted surrogate."""
+    obj = mdl.objective
+
+    def eval_fn(x):
+        out = obj.evaluate(x)
+        return out[0] if isinstance(out, tuple) else out
+
+    return eval_fn
+
+
+def _optimize_on_device(
+    optimizer,
+    eval_fn,
+    num_generations: int,
+    generator: torch.Generator,
+    termination_check_interval: int = 10,
+    logger=None,
+):
+    """The inner EA loop on the optimizer's device (reference
+    `_optimize_on_device`, moasmo.py:288, one `lax.scan`). Offspring stay
+    on the device until the loop ends. With adaptive population size the
+    loop pauses every ``termination_check_interval`` generations so the
+    host can grow the capacity, as the reference's chunked scan does.
+
+    Returns (x_new, y_new, gen_counts): the evaluated offspring flattened
+    to (N, cols) numpy plus the per-generation offspring counts."""
+    bounds = optimizer.bounds
+    lb, ub = bounds[:, 0], bounds[:, 1]
+    adaptive = optimizer.adaptive_population_size
+    xs, ys, counts = [], [], []
+    gen = 0
+    while gen < num_generations:
+        n = num_generations - gen
+        if adaptive:
+            n = min(n, termination_check_interval)
+        state = optimizer.state
+        for _ in range(n):
+            x_gen, state = optimizer.generate_strategy(generator, state)
+            x_gen = torch.clamp(x_gen, lb, ub)
+            y_gen = eval_fn(x_gen)
+            state = optimizer.update_strategy(state, x_gen, y_gen)
+            xs.append(x_gen)
+            ys.append(y_gen)
+            counts.append(x_gen.shape[0])
+        optimizer.state = state
+        gen += n
+        if adaptive and optimizer.maybe_grow_capacity() and logger is not None:
+            logger.info(
+                f"{optimizer.name}: population capacity grown to "
+                f"{optimizer.capacity}"
+            )
+    if not xs:
+        return (
+            np.zeros((0, optimizer.nInput), np.float32),
+            np.zeros((0, optimizer.nOutput), np.float32),
+            np.zeros((0,), np.int64),
+        )
+    return (
+        _to_np(torch.cat(xs)),
+        _to_np(torch.cat(ys)),
+        np.asarray(counts, dtype=np.int64),
+    )
+
+
+def optimize(
+    num_generations,
+    optimizer,
+    model: Model,
+    nInput: int,
+    nOutput: int,
+    xlb,
+    xub,
+    popsize: int = 100,
+    initial: Optional[Tuple[np.ndarray, np.ndarray]] = None,
+    termination=None,
+    termination_check_interval: int = 10,
+    local_random=None,
+    logger=None,
+    optimize_mean_variance: bool = False,
+    **kwargs,
+):
+    """Inner multi-objective optimization against the (surrogate) model,
+    with the reference's generator protocol (dmosopt/MOASMO.py:21-131):
+    when `model.objective is None` each generation's candidates are
+    yielded and the caller sends back real evaluations; otherwise the loop
+    runs on the device and the `EpochResults` arrive via StopIteration.
+
+    The numpy stream of ``local_random`` is consumed in the reference's
+    order: loop generator, initial design, optimizer state."""
+    if termination is not None or optimize_mean_variance:
+        raise NotImplementedError(
+            "termination criteria and optimize_mean_variance are not ported"
+        )
+    generator = as_torch_generator(local_random, optimizer.device)
+    bounds = np.column_stack((np.asarray(xlb), np.asarray(xub)))
+
+    x = np.asarray(optimizer.generate_initial(bounds, local_random), dtype=np.float32)
+    eval_fn = None
+    if model.objective is None:
+        y = yield x
+        y = np.asarray(y, dtype=np.float32)
+    else:
+        eval_fn = _surrogate_eval_fn(model)
+        y = _to_np(eval_fn(torch.as_tensor(x, device=optimizer.device))).astype(np.float32)
+
+    if initial is not None:
+        x_initial, y_initial = initial
+        if x_initial is not None:
+            x = np.vstack((np.asarray(x_initial, dtype=np.float32), x))
+        if y_initial is not None:
+            y = np.vstack((np.asarray(y_initial, dtype=np.float32), y))
+
+    optimizer.initialize_strategy(x, y, bounds, local_random, **kwargs)
+    if logger is not None:
+        logger.info(
+            f"{optimizer.name}: optimizer parameters are {repr(optimizer.opt_params)}"
+        )
+
+    gen_indexes = [np.zeros((x.shape[0],), dtype=np.uint32)]
+    x_new, y_new = [], []
+
+    if model.objective is not None:
+        x_dev, y_dev, gen_counts = _optimize_on_device(
+            optimizer, eval_fn, num_generations, generator,
+            termination_check_interval=termination_check_interval,
+            logger=logger,
+        )
+        x_new, y_new = [x_dev], [y_dev]
+        gen_indexes.extend(
+            np.full((int(c),), i + 1, dtype=np.uint32)
+            for i, c in enumerate(gen_counts)
+        )
+    else:
+        for i in range(1, num_generations + 1):
+            if logger is not None:
+                logger.info(
+                    f"{optimizer.name}: generation {i} of {num_generations}..."
+                )
+            x_gen_dev, state_gen = optimizer.generate()
+            # the host copy goes out for evaluation; the update keeps the
+            # device-resident offspring
+            x_gen = _to_np(x_gen_dev)
+            y_gen = yield x_gen
+            y_gen = np.asarray(y_gen, dtype=np.float32)
+            optimizer.update(x_gen_dev, y_gen, state_gen)
+            x_new.append(x_gen)
+            y_new.append(y_gen)
+            gen_indexes.append(np.full((x_gen.shape[0],), i, dtype=np.uint32))
+
+    gen_index = np.concatenate(gen_indexes)
+    x = np.vstack([x] + x_new)
+    y = np.vstack([y] + y_new)
+    bestx, besty = optimizer.population_objectives
+    return EpochResults(_to_np(bestx), _to_np(besty), gen_index, x, y, optimizer)
+
+
+# -------------------------------------------------------------------- xinit
+
+
+def xinit(
+    nEval: int,
+    param_names,
+    xlb,
+    xub,
+    nPrevious: Optional[int] = None,
+    method="slh",
+    maxiter: int = 5,
+    local_random=None,
+    logger=None,
+):
+    """Initial design of `nEval * nInput` points scaled to the bounds
+    (reference: dmosopt/MOASMO.py:134-193). The JAX package defaults to
+    GLP, which is not ported yet; the port's default is SLH, the
+    driver's default in both packages."""
+    nInput = len(param_names)
+    Ninit = nInput * nEval
+    xlb = np.asarray(xlb)
+    xub = np.asarray(xub)
+
+    if nPrevious is None:
+        nPrevious = 0
+    if Ninit <= 0 or Ninit <= nPrevious:
+        return None
+
+    if isinstance(method, dict):
+        # explicit per-parameter sample columns, validated against bounds
+        Xinit = np.column_stack([method[k] for k in param_names])
+        inside = (Xinit >= xlb) & (Xinit <= xub)
+        if not inside.all():
+            bad = [param_names[i] for i in np.nonzero(~inside.all(axis=0))[0]]
+            raise ValueError(f"xinit: out of bounds values for parameter(s) {bad}")
+        return Xinit
+
+    if logger is not None:
+        logger.info(f"xinit: generating {Ninit} initial parameters...")
+
+    if callable(method):
+        Xinit = method(Ninit, nInput, local_random)
+    else:
+        fn = resolve(method, default_sampling_methods)
+        Xinit = fn(Ninit, nInput, local_random, maxiter=maxiter)
+
+    return np.asarray(Xinit)[nPrevious:, :] * (xub - xlb) + xlb
+
+
+# -------------------------------------------------------------------- train
+
+_DENSE_KERNEL_SURROGATES = {"gpr"}
+LARGE_N_THRESHOLD = 4096
+
+
+def train(
+    nInput: int,
+    nOutput: int,
+    xlb,
+    xub,
+    Xinit,
+    Yinit,
+    C,
+    surrogate_method_name="gpr",
+    surrogate_method_kwargs: Optional[Dict[str, Any]] = None,
+    surrogate_return_mean_variance: bool = False,
+    logger=None,
+    device=None,
+):
+    """Fit the objective surrogate on feasible, deduplicated data
+    (reference: dmosopt/MOASMO.py:473-532). Beyond
+    ``large_n_threshold`` points the JAX package reroutes dense GPs to its
+    sparse family, which is not ported; such a fit raises."""
+    x = np.asarray(Xinit).copy()
+    y = np.asarray(Yinit).copy()
+
+    feasible, (x, y) = _feasible_subset(C, x, y)
+    if logger is not None:
+        if feasible is not None and len(feasible) > 0:
+            logger.info(f"Found {len(feasible)} feasible solutions")
+        else:
+            logger.info(f"Found {len(x)} solutions")
+    x, y = remove_duplicates(x, y)
+
+    kwargs = dict(surrogate_method_kwargs or {})
+    threshold = kwargs.pop("large_n_threshold", LARGE_N_THRESHOLD)
+    if threshold and surrogate_method_name in _DENSE_KERNEL_SURROGATES and len(x) > threshold:
+        raise NotImplementedError(
+            f"train: N={len(x)} exceeds the dense-kernel threshold "
+            f"({threshold}); the sparse surrogates are not ported"
+        )
+    cls = resolve(surrogate_method_name, default_surrogate_methods)
+    return cls(
+        x, y, nInput, nOutput, xlb, xub, **kwargs,
+        logger=logger,
+        return_mean_variance=surrogate_return_mean_variance,
+        device=device,
+    )
+
+
+# -------------------------------------------------------------------- epoch
+
+
+def epoch(
+    num_generations,
+    param_names,
+    objective_names,
+    xlb,
+    xub,
+    pct,
+    Xinit,
+    Yinit,
+    C,
+    pop: int = 100,
+    optimizer_name="nsga2",
+    optimizer_kwargs: Optional[Dict[str, Any]] = None,
+    surrogate_method_name="gpr",
+    surrogate_method_kwargs: Optional[Dict[str, Any]] = None,
+    local_random=None,
+    logger=None,
+    device=None,
+):
+    """One MO-ASMO epoch as a host-side generator
+    (reference: dmosopt/MOASMO.py:196-470).
+
+    Protocol: if Xinit is None, the first `yield` receives
+    `(Xinit, Yinit, C)`. In surrogate mode the epoch then runs on the
+    device and the resample dict arrives via StopIteration. In
+    no-surrogate mode the generator yields `(x_gen, True)` per generation
+    and receives `(_, y_gen, c_gen)`. The result's ``stats`` hold the
+    wall seconds of the surrogate fit (``train_s``, the device
+    synchronized), the fit's summary (``objective``) and the wall
+    seconds of the inner EA (``optimize_s``, over ``n_generations``
+    generations). The JAX engine's feasibility, sensitivity,
+    custom-training, refit, mean-variance and termination options are
+    not ported.
+    """
+    nInput = len(param_names)
+    nOutput = len(objective_names)
+    N_resample = int(pop * pct)
+    xlb = np.asarray(xlb)
+    xub = np.asarray(xub)
+    stats: Dict[str, Any] = {}
+
+    if Xinit is None:
+        Xinit, Yinit, C = yield
+
+    x_0 = np.asarray(Xinit, dtype=np.float32).copy()
+    y_0 = np.asarray(Yinit, dtype=np.float32).copy()
+
+    optimizer_cls = resolve(optimizer_name, default_optimizers)
+    mdl = Model()
+    if surrogate_method_name is not None:
+        t0 = time.perf_counter()
+        mdl.objective = train(
+            nInput, nOutput, xlb, xub, Xinit, Yinit, C,
+            surrogate_method_name=surrogate_method_name,
+            surrogate_method_kwargs=surrogate_method_kwargs,
+            logger=logger, device=device,
+        )
+        if device is not None and torch.device(device).type == "cuda":
+            torch.cuda.synchronize()
+        stats["train_s"] = time.perf_counter() - t0
+        stats.update(mdl.get_stats())
+
+    optimizer_kwargs_: Dict[str, Any] = {
+        "sampling_method": "slh",
+        "mutation_rate": None,
+        "nchildren": 1,
+    }
+    optimizer_kwargs_.update(optimizer_kwargs or {})
+
+    optimizer = optimizer_cls(
+        nInput=nInput, nOutput=nOutput, popsize=pop, model=mdl,
+        distance_metric=None, device=device, **optimizer_kwargs_,
+    )
+
+    # filter out infeasible solutions before seeding the optimizer
+    _, (x_0, y_0) = _feasible_subset(C, x_0, y_0)
+
+    # in evaluation mode the generator suspends while the driver
+    # evaluates each generation; that time is excluded from optimize_s
+    t_opt0 = time.perf_counter()
+    t_suspended = 0.0
+    opt_gen = optimize(
+        num_generations, optimizer, mdl, nInput, nOutput, xlb, xub,
+        initial=(x_0, y_0), popsize=pop, local_random=local_random,
+        logger=logger, **optimizer_kwargs_,
+    )
+    try:
+        x_gen = next(opt_gen)
+    except StopIteration as ex:
+        res = ex.value
+    else:
+        while True:
+            t_yield0 = time.perf_counter()
+            _, y_gen, _c_gen = yield x_gen, True
+            t_suspended += time.perf_counter() - t_yield0
+            try:
+                x_gen = opt_gen.send(y_gen)
+            except StopIteration as ex:
+                res = ex.value
+                break
+    stats["optimize_s"] = time.perf_counter() - t_opt0 - t_suspended
+    stats["n_generations"] = int(res.gen_index.max()) if len(res.gen_index) else 0
+
+    best_x, best_y = res.best_x, res.best_y
+    gen_index, x, y = res.gen_index, res.x, res.y
+
+    if mdl.objective is not None:
+        # dedupe resample candidates against already-evaluated points
+        # (reference MOASMO.py:441-448)
+        is_duplicate = get_duplicates(best_x, x_0)
+        best_x = best_x[~is_duplicate]
+        best_y = best_y[~is_duplicate]
+        D = _to_np(crowding_distance(torch.as_tensor(best_y)))
+        idxr = D.argsort()[::-1][:N_resample]
+        return {
+            "x_resample": best_x[idxr, :], "y_pred": best_y[idxr, :],
+            "gen_index": gen_index, "x_sm": x, "y_sm": y,
+            "optimizer": optimizer, "stats": stats,
+        }
+    return {
+        "best_x": best_x, "best_y": best_y, "gen_index": gen_index,
+        "x": x, "y": y, "optimizer": optimizer, "stats": stats,
+    }
+
+
+# ----------------------------------------------------------------- analysis
+
+
+def get_best(
+    x, y, f, c,
+    nInput: int,
+    nOutput: int,
+    epochs=None,
+    feasible: bool = True,
+    return_perm: bool = False,
+    return_feasible: bool = False,
+    delete_duplicates: bool = True,
+):
+    """Extract the non-dominated (rank-0) subset of evaluated points
+    (reference: dmosopt/MOASMO.py:581-639); host-side, on CPU tensors."""
+    xtmp = np.asarray(x)
+    ytmp = np.asarray(y)
+    f = np.asarray(f) if f is not None else None
+    c = np.asarray(c) if c is not None else None
+    epochs = np.asarray(epochs) if epochs is not None else None
+    feasible_idx = None
+
+    if feasible and c is not None:
+        feasible_idx, (xtmp, ytmp, f, epochs, c) = _feasible_subset(
+            c, xtmp, ytmp, f, epochs, c
+        )
+
+    if delete_duplicates:
+        keep = ~get_duplicates(ytmp)
+        xtmp, ytmp = xtmp[keep], ytmp[keep]
+        f = np.asarray(f)[keep] if f is not None else None
+        c = np.asarray(c)[keep] if c is not None else None
+        epochs = np.asarray(epochs)[keep] if epochs is not None else None
+
+    xs, ys, rank, _, perm = sort_mo(torch.as_tensor(xtmp), torch.as_tensor(ytmp))
+    xs, ys, rank, perm = _to_np(xs), _to_np(ys), _to_np(rank), _to_np(perm)
+    idxp = rank == 0
+    best_x = xs[idxp, :]
+    best_y = ys[idxp, :]
+    best_f = np.asarray(f)[perm][idxp] if f is not None else None
+    best_c = np.asarray(c)[perm, :][idxp, :] if c is not None else None
+    best_epoch = np.asarray(epochs)[perm][idxp] if epochs is not None else None
+
+    out_perm = perm if return_perm else None
+    if return_feasible:
+        return best_x, best_y, best_f, best_c, best_epoch, out_perm, feasible_idx
+    return best_x, best_y, best_f, best_c, best_epoch, out_perm
+

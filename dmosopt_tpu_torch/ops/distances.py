@@ -1,0 +1,79 @@
+"""Diversity metrics: crowding distance and the euclidean metric.
+
+Port of ``dmosopt_tpu/ops/distances.py`` (`crowding_distance` :26,
+`euclidean_distance_metric` :70). The pairwise/duplicate kernels of that
+module are not on this slice's path; host-side duplicate detection uses
+`moasmo.get_duplicates` (float64 numpy), as the reference does.
+
+The per-objective order is a STABLE sort, as `jnp.argsort` is, so tied
+objective values get the same neighbours in both packages. The
+scatter-add of the reference becomes a gather through the inverse
+permutation, summed over objectives in the reference's order.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def _valid_mask(Y: torch.Tensor, mask) -> torch.Tensor:
+    if mask is None:
+        return torch.ones(Y.shape[0], dtype=torch.bool, device=Y.device)
+    return mask.to(torch.bool)
+
+
+def crowding_distance(Y: torch.Tensor, mask=None) -> torch.Tensor:
+    """Crowding distance with the reference's conventions
+    (dmosopt/indicators.py:12-51): objectives unit-normalized per column,
+    boundary points get 1.0 per objective (not inf), interior points the
+    neighbour gap ``US[i+1] - US[i-1]``, contributions summed over
+    objectives, NaNs zeroed. Invalid (masked) rows return 0 and do not
+    perturb neighbours."""
+    n, d = Y.shape
+    valid = _valid_mask(Y, mask)
+    n_valid = valid.sum()
+
+    big = torch.finfo(Y.dtype).max  # a Python scalar: no host-to-device copy
+    Yv = torch.where(valid[:, None], Y, big)
+    lb = Yv.amin(dim=0, keepdim=True)
+    ub = torch.where(valid[:, None], Y, -big).amax(dim=0, keepdim=True)
+    span = torch.where(ub - lb == 0.0, torch.ones_like(ub), ub - lb)
+    U = (Yv - lb) / span  # invalid rows ~ +huge, sort to the end
+
+    US, idx = torch.sort(U, dim=0, stable=True)  # (n, d) per-objective order
+
+    prev = torch.cat([US[:1], US[:-1]], dim=0)
+    nxt = torch.cat([US[1:], US[-1:]], dim=0)
+    gaps = nxt - prev
+
+    pos = torch.arange(n, device=Y.device)[:, None]
+    is_boundary = (pos == 0) | (pos == n_valid - 1)
+    in_range = pos < n_valid
+    DS = torch.where(is_boundary, torch.ones_like(gaps), gaps)
+    DS = torch.where(in_range, DS, torch.zeros_like(DS))
+
+    # inverse permutation per column: row i's contribution sits at the
+    # position it was sorted to
+    inv = torch.empty_like(idx)
+    inv.scatter_(0, idx, pos.expand(n, d).contiguous())
+    contrib = torch.gather(DS, 0, inv)
+    D = torch.zeros(n, dtype=Y.dtype, device=Y.device)
+    for j in range(d):  # the reference's summation order over objectives
+        D = D + contrib[:, j]
+    D = torch.nan_to_num(D, nan=0.0, posinf=0.0, neginf=0.0)
+    # single-point convention: distance 1.0 (reference indicators.py:23-24)
+    D = torch.where(n_valid == 1, torch.ones_like(D), D)
+    return torch.where(valid, D, torch.zeros_like(D))
+
+
+def euclidean_distance_metric(Y: torch.Tensor, mask=None) -> torch.Tensor:
+    """Row-wise euclidean norm of unit-normalized objectives
+    (reference: dmosopt/indicators.py:54-62)."""
+    valid = _valid_mask(Y, mask)
+    big = torch.finfo(Y.dtype).max
+    lb = torch.where(valid[:, None], Y, big).amin(dim=0)
+    ub = torch.where(valid[:, None], Y, -big).amax(dim=0)
+    span = torch.where(ub - lb == 0.0, torch.ones_like(ub), ub - lb)
+    U = (Y - lb) / span
+    out = torch.sqrt(torch.sum(U**2, dim=1))
+    return torch.where(valid, out, torch.zeros_like(out))

@@ -1,0 +1,295 @@
+"""Per-problem optimization strategy: the request-queue state machine.
+
+Port of ``dmosopt_tpu/strategy.py`` (reference `DistOptStrategy`,
+dmosopt/dmosopt.py:43-544) on this slice's path: it owns the evaluated
+points archive (x/y/c), a queue of pending `EvalRequest`s and the
+per-epoch MO-ASMO generator, and exposes the `initialize_epoch` /
+`update_epoch` transitions. In surrogate mode the epoch generator
+completes in a single `next()` (the whole inner EA ran on the device);
+in no-surrogate mode the per-generation request/complete cycle matches
+the reference. Termination criteria, the refit controller, features and
+resuming from an archive are not ported; the first raises
+`NotImplementedError`, the driver rejects the others.
+"""
+
+from __future__ import annotations
+
+import itertools
+from collections import deque
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+
+from dmosopt_tpu_torch import moasmo as opt
+from dmosopt_tpu_torch.config import as_tuple
+from dmosopt_tpu_torch.datatypes import (
+    EpochResults,
+    EvalEntry,
+    EvalRequest,
+    OptProblem,
+    StrategyState,
+)
+from dmosopt_tpu_torch.moasmo import get_duplicates
+from dmosopt_tpu_torch.ops import order_mo
+
+
+def _vstack_or_init(base, rows):
+    """Append rows to a growing archive column (None = first batch)."""
+    if rows is None:
+        return base
+    return rows if base is None else np.concatenate((base, rows), axis=0)
+
+
+class DistOptStrategy:
+    def __init__(
+        self,
+        prob: OptProblem,
+        *,
+        n_initial: int = 10,
+        initial_method: str = "slh", initial_maxiter: int = 5,
+        population_size: int = 100, num_generations: int = 100,
+        resample_fraction: float = 0.25,
+        distance_metric=None, termination_conditions=None,
+        optimizer_name="nsga2",
+        optimizer_kwargs=None,
+        surrogate_method_name: Optional[str] = "gpr",
+        surrogate_method_kwargs: Optional[Dict] = None,
+        local_random=None, logger=None, device=None,
+    ):
+        if termination_conditions:
+            raise NotImplementedError("termination_conditions are not ported")
+        self.__dict__.update(
+            prob=prob,
+            local_random=local_random,
+            logger=logger,
+            device=device,
+            surrogate_method_name=surrogate_method_name,
+            distance_metric=distance_metric,
+            resample_fraction=resample_fraction,
+            num_generations=num_generations,
+            population_size=population_size,
+        )
+        self.surrogate_method_kwargs = surrogate_method_kwargs or {}
+        self.optimizer_name = as_tuple(optimizer_name)
+        self.optimizer_kwargs = as_tuple(
+            optimizer_kwargs
+            if optimizer_kwargs is not None
+            else {"crossover_prob": 0.9, "mutation_prob": 0.1}
+        )
+        self.optimizer_iter = itertools.cycle(range(len(self.optimizer_name)))
+
+        self.completed = []
+        self.x = self.y = self.c = None
+
+        # seed the request queue with the initial design
+        xinit = opt.xinit(
+            n_initial, prob.param_names, prob.lb, prob.ub,
+            method=initial_method, maxiter=initial_maxiter,
+            local_random=self.local_random, logger=self.logger,
+        )
+        self.reqs = deque()
+        if xinit is not None:
+            if xinit.shape[1] != prob.dim:
+                raise ValueError(
+                    f"initial design dim {xinit.shape[1]} != problem dim {prob.dim}"
+                )
+            self.reqs.extend(EvalRequest(row, None, 0) for row in xinit)
+        self.opt_gen = None
+        self.epoch_index = -1
+        self.stats = {}
+        self.n_quarantined = 0
+
+    # ------------------------------------------------------- request queue
+
+    def append_request(self, req: EvalRequest):
+        self.reqs.append(req)
+
+    def has_requests(self) -> bool:
+        return len(self.reqs) > 0
+
+    def get_next_request(self) -> Optional[EvalRequest]:
+        return self.reqs.popleft() if self.reqs else None
+
+    def complete_request(self, x, y, epoch=None, c=None, pred=None, time=-1.0):
+        x, y = np.asarray(x), np.asarray(y)
+        if x.shape[0] != self.prob.dim or y.shape[0] != self.prob.n_objectives:
+            raise ValueError(f"result shapes {x.shape}, {y.shape} do not fit the problem")
+        entry = EvalEntry(epoch, x, y, None, c, pred, time)
+        if not np.all(np.isfinite(y.astype(np.float64, copy=False))):
+            # a non-finite objective never reaches the archive: one NaN
+            # row would poison the standardized GP training targets
+            self.n_quarantined += 1
+            self.stats["n_quarantined"] = self.n_quarantined
+            if self.logger is not None:
+                self.logger.warning(
+                    f"quarantined non-finite objective row (y={y.tolist()}); "
+                    f"{self.n_quarantined} total"
+                )
+            return None
+        self.completed.append(entry)
+        return entry
+
+    # ----------------------------------------------------- archive upkeep
+
+    def _remove_duplicate_evals(self):
+        is_duplicate = get_duplicates(self.x)
+        self.x = self.x[~is_duplicate]
+        self.y = self.y[~is_duplicate]
+        if self.c is not None:
+            self.c = self.c[~is_duplicate]
+
+    def _reduce_evals(self):
+        """Trim the archive to the best `population_size` points
+        (reference dmosopt.py:219-229)."""
+        self._remove_duplicate_evals()
+        perm, _, _ = order_mo(torch.as_tensor(self.x), torch.as_tensor(self.y))
+        perm = perm.numpy()[: self.population_size]
+        self.x = self.x[perm, :]
+        self.y = self.y[perm, :]
+        if self.c is not None:
+            self.c = self.c[perm, :]
+
+    def _update_evals(self):
+        """Fold completed evaluations into the archive once the request
+        queue is drained (reference dmosopt.py:229-305)."""
+        if not self.completed or self.has_requests():
+            return None
+        done = self.completed
+        x = np.vstack([e.parameters for e in done])
+        y = np.vstack([e.objectives for e in done])
+        c = (
+            np.vstack([e.constraints for e in done])
+            if self.prob.n_constraints is not None
+            else None
+        )
+        nan_pred = [np.nan] * self.prob.n_objectives
+        pred = np.vstack(
+            [nan_pred if e.prediction is None else e.prediction for e in done]
+        )
+        if c is not None and c.shape[1] != self.prob.n_constraints:
+            raise ValueError(
+                f"completed evals: c has {c.shape[1]} columns, "
+                f"expected {self.prob.n_constraints}"
+            )
+        self.x = _vstack_or_init(self.x, x)
+        self.y = _vstack_or_init(self.y, y)
+        self.c = _vstack_or_init(self.c, c)
+        self._remove_duplicate_evals()
+        self.completed = []
+        return x, y, pred, None, c
+
+    # ------------------------------------------------------- epoch driving
+
+    def _cycled_optimizer(self):
+        """(name, kwargs) for this epoch's optimizer."""
+        if len(self.optimizer_kwargs) not in (1, len(self.optimizer_name)):
+            raise ValueError(
+                f"optimizer_kwargs has {len(self.optimizer_kwargs)} entries "
+                f"for {len(self.optimizer_name)} optimizers; pass one dict "
+                f"or one per optimizer"
+            )
+        idx = next(self.optimizer_iter)
+        merged = dict(self.optimizer_kwargs[idx % len(self.optimizer_kwargs)] or {})
+        if self.distance_metric is not None:
+            merged["distance_metric"] = self.distance_metric
+        return self.optimizer_name[idx], merged
+
+    def initialize_epoch(self, epoch_index: int):
+        if self.opt_gen is not None:
+            raise RuntimeError("an epoch is already active for this strategy")
+        name, okw = self._cycled_optimizer()
+        self._update_evals()
+
+        if epoch_index <= self.epoch_index:
+            raise ValueError(f"epoch {epoch_index} does not follow {self.epoch_index}")
+        self.epoch_index = epoch_index
+        self.opt_gen = opt.epoch(
+            self.num_generations, self.prob.param_names,
+            self.prob.objective_names, self.prob.lb, self.prob.ub,
+            self.resample_fraction, self.x, self.y, self.c,
+            pop=self.population_size,
+            optimizer_name=name, optimizer_kwargs=okw,
+            surrogate_method_name=self.surrogate_method_name,
+            surrogate_method_kwargs=self.surrogate_method_kwargs,
+            local_random=self.local_random, logger=self.logger,
+            device=self.device,
+        )
+        try:
+            x_gen, reduce_evals = next(self.opt_gen)
+        except StopIteration as ex:
+            # surrogate mode: the epoch completed on the device in one shot;
+            # stash the result dict for update_epoch (ref dmosopt.py:352-358)
+            self.opt_gen.close()
+            self.opt_gen = ex.value
+            return
+        if reduce_evals:
+            self._reduce_evals()
+        for row in x_gen:
+            self.append_request(EvalRequest(row, None, self.epoch_index))
+
+    def _complete_from_result(self, res, resample: bool):
+        """The epoch generator's result dict as (CompletedEpoch,
+        EpochResults); a surrogate-mode result also enqueues the resample
+        batch for real evaluation next epoch."""
+        self.stats.update(res.get("stats", {}))
+        if "best_x" in res:  # no-surrogate mode: archive bests, no resample
+            picked = (res["best_x"], res["best_y"], res["gen_index"],
+                      res["x"], res["y"], res["optimizer"])
+            return StrategyState.CompletedEpoch, EpochResults(*picked)
+        x_resample, y_pred = res["x_resample"], res["y_pred"]
+        if resample and x_resample is not None:
+            for row, pred in zip(x_resample, y_pred):
+                self.append_request(EvalRequest(row, pred, self.epoch_index + 1))
+        picked = (x_resample, y_pred, res["gen_index"],
+                  res["x_sm"], res["y_sm"], res["optimizer"])
+        return StrategyState.CompletedEpoch, EpochResults(*picked)
+
+    def update_epoch(self, resample: bool = False):
+        """Advance the epoch state machine; returns
+        (StrategyState, value, completed_evals) — reference dmosopt.py:368-504."""
+        if self.opt_gen is None:
+            raise RuntimeError("epoch not initialized")
+        completed_evals = self._update_evals()
+        if completed_evals is None and self.has_requests():
+            return StrategyState.WaitingRequests, None, None
+
+        if isinstance(self.opt_gen, dict):
+            stashed, self.opt_gen = self.opt_gen, None
+            state, value = self._complete_from_result(stashed, resample)
+            return state, value, completed_evals
+
+        try:
+            if completed_evals is None:
+                item, reduce_evals = next(self.opt_gen)
+            else:
+                feedback = (completed_evals[0], completed_evals[1], completed_evals[4])
+                item, reduce_evals = self.opt_gen.send(feedback)
+        except StopIteration as ex:
+            self.opt_gen.close()
+            self.opt_gen = None
+            state, value = self._complete_from_result(ex.value, resample)
+            return state, value, completed_evals
+
+        if reduce_evals:
+            self._reduce_evals()
+        for row in item:
+            self.append_request(EvalRequest(row, None, self.epoch_index))
+        return StrategyState.EnqueuedRequests, item, completed_evals
+
+    # ------------------------------------------------------------ queries
+
+    def get_best_evals(self, feasible: bool = True):
+        if self.x is None:
+            return None, None, None
+        bestx, besty, _, bestc, _, _ = opt.get_best(
+            self.x, self.y, None, self.c,
+            self.prob.dim, self.prob.n_objectives, feasible=feasible,
+        )
+        return bestx, besty, bestc
+
+    def get_evals(self, return_constraints: bool = False):
+        out = [self.x, self.y]
+        if return_constraints:
+            out.append(self.c)
+        return tuple(out)

@@ -1,0 +1,24 @@
+"""Device selection for the port's entry points.
+
+The JAX package runs wherever JAX's default backend is. The port runs on
+a CUDA device unless the caller names another: ``device=None`` means
+``"cuda"``, and with no CUDA device that is an error, never a silent
+fall-back to the CPU. Tests and CPU runs pass ``device="cpu"``.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def resolve_device(device=None) -> torch.device:
+    """``None`` -> ``cuda`` (raising when no CUDA device is present);
+    anything else -> ``torch.device(device)``."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "dmosopt_tpu_torch runs on a CUDA device by default and "
+                "none is available; pass device='cpu' to run on the CPU"
+            )
+        return torch.device("cuda")
+    return torch.device(device)

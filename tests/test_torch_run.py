@@ -1,0 +1,174 @@
+"""The port end to end through `dmosopt_tpu_torch.run()`, on the CPU.
+
+The configuration is tests/test_driver.py's (host objective, dim 8),
+run through the port only. Its symmetric-LH initial design is numpy
+drawn from the run's seeded Generator in the reference's order, so it
+must be bit-for-bit `dmosopt_tpu.sampling.slh`'s; the archive must hold
+the rows the JAX driver's epoch accounting gives; the front must meet
+the reference test's oracle.
+"""
+
+import pkgutil
+import subprocess
+import sys
+import textwrap
+
+import numpy as np
+import pytest
+import torch
+
+# one intra-op thread: the test workers share the machine, and torch's
+# default of one thread per core oversubscribes it
+torch.set_num_threads(1)
+
+import dmosopt_tpu_torch
+from dmosopt_tpu import sampling as jax_sampling
+from dmosopt_tpu_torch.benchmarks.zdt import distance_to_front, zdt1, zdt1_pareto
+from dmosopt_tpu_torch.driver import dopt_dict
+
+N_DIM = 8
+
+
+def zdt1_obj(pp):
+    """Host-Python objective taking a parameter dict (reference style)."""
+    x = np.array([pp[f"x{i}"] for i in range(N_DIM)])
+    f1 = x[0]
+    g = 1.0 + 9.0 / (N_DIM - 1) * np.sum(x[1:])
+    return np.array([f1, g * (1.0 - np.sqrt(f1 / g))])
+
+
+def _params(**over):
+    params = {
+        "opt_id": "test_torch_zdt1",
+        "obj_fun": zdt1_obj,
+        "objective_names": ["f1", "f2"],
+        "space": {f"x{i}": [0.0, 1.0] for i in range(N_DIM)},
+        "problem_parameters": {},
+        "n_initial": 8,
+        "n_epochs": 3,
+        "population_size": 64,
+        "num_generations": 40,
+        "resample_fraction": 0.5,
+        "initial_method": "slh",
+        "optimizer_name": "nsga2",
+        "surrogate_method_name": "gpr",
+        "surrogate_method_kwargs": {"n_starts": 4, "n_iter": 60, "seed": 0},
+        "random_seed": 42,
+    }
+    params.update(over)
+    return params
+
+
+def test_run_zdt1_host_objective():
+    best = dmosopt_tpu_torch.run(_params(), device="cpu", verbose=False)
+    dopt = dopt_dict["test_torch_zdt1"]
+    x_all, y_all = dopt.optimizer_dict[0].get_evals()
+
+    n0 = 8 * N_DIM
+    design = jax_sampling.slh(n0, N_DIM, np.random.default_rng(42), maxiter=5)
+    np.testing.assert_array_equal(x_all[:n0], design)
+    # epochs 0 and 1 each enqueue int(64 * 0.5) resample points; the last
+    # epoch does not (the JAX driver, driver.py:1428-1490)
+    assert x_all.shape[0] == n0 + 2 * 32
+    assert [s["n_generations"] for s in dopt.epoch_stats] == [40, 40, 40]
+
+    y = np.column_stack([v for _, v in best[1]])
+    d = distance_to_front(y, zdt1_pareto(500))
+    assert (d < 0.1).sum() >= 10, (y.shape, float(np.median(d)))
+
+
+def test_run_torch_objective_and_no_surrogate():
+    """The batched objective route, and the per-generation host path of
+    a run without a surrogate."""
+    best = dmosopt_tpu_torch.run(
+        _params(opt_id="torch_obj", obj_fun=zdt1, torch_objective=True,
+                n_initial=4, n_epochs=2, population_size=32, num_generations=10),
+        device="cpu", verbose=False,
+    )
+    assert len(best[0]) == N_DIM and len(best[1]) == 2
+    best = dmosopt_tpu_torch.run(
+        _params(opt_id="no_sm", surrogate_method_name=None, n_epochs=1,
+                num_generations=5, population_size=32),
+        device="cpu", verbose=False,
+    )
+    assert len(best[0]) == N_DIM
+    # the 64-point design, then the EA's initial population of 32 and 5
+    # generations of 32 offspring, all evaluated for real
+    assert dopt_dict["no_sm"].eval_count == 64 + 32 + 5 * 32
+
+
+def test_run_with_constraints_returns_feasible_points():
+    """A host objective returning (y, c): the archive keeps the constraint
+    columns and the returned set is the feasible non-dominated one."""
+
+    def constrained(pp):
+        y = zdt1_obj(pp)
+        return y, np.array([0.6 - pp["x0"]])  # feasible iff x0 < 0.6
+
+    best = dmosopt_tpu_torch.run(
+        _params(opt_id="constrained", obj_fun=constrained, constraint_names=["c0"],
+                n_epochs=2, num_generations=10),
+        device="cpu", verbose=False, return_constraints=True,
+    )
+    prms, _, constr = best
+    x0 = dict(prms)["x0"]
+    assert len(x0) > 0 and (x0 < 0.6).all()
+    assert (dict(constr)["c0"] > 0).all()
+    x_all, _, c_all = dopt_dict["constrained"].optimizer_dict[0].get_evals(
+        return_constraints=True
+    )
+    assert c_all.shape == (x_all.shape[0], 1)
+
+
+@pytest.mark.parametrize(
+    "option",
+    [{"save": True, "file_path": "x.h5"}, {"mesh": object()},
+     {"tenant_batching": True}, {"surrogate_refit": "warm"},
+     {"termination_conditions": True}, {"problem_ids": {0, 1}},
+     {"jax_objective": True}],
+)
+def test_unported_driver_options_raise(option):
+    with pytest.raises(NotImplementedError):
+        dmosopt_tpu_torch.run(_params(**option), device="cpu", verbose=False)
+
+
+@pytest.mark.parametrize(
+    "option", [{"optimizer_name": "age"}, {"surrogate_method_name": "egp"},
+               {"initial_method": "glp"}],
+)
+def test_unported_components_raise(option):
+    with pytest.raises(NotImplementedError):
+        dmosopt_tpu_torch.run(
+            _params(n_epochs=1, num_generations=2, **option),
+            device="cpu", verbose=False,
+        )
+
+
+def test_run_needs_cuda_unless_the_cpu_is_asked_for(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        dmosopt_tpu_torch.run(_params(), verbose=False)
+
+
+def test_port_imports_neither_jax_nor_the_jax_package():
+    modules = sorted(
+        m.name for m in pkgutil.walk_packages(
+            dmosopt_tpu_torch.__path__, "dmosopt_tpu_torch."
+        )
+    )
+    code = textwrap.dedent(f"""
+        import importlib, sys
+        for name in {modules!r}:
+            importlib.import_module(name)
+        bad = [m for m in sys.modules
+               if m == "jax" or m.startswith(("jax.", "jaxlib"))
+               or m == "dmosopt_tpu" or m.startswith("dmosopt_tpu.")]
+        assert not bad, bad
+        print(len({modules!r}))
+    """)
+    out = subprocess.run(
+        [sys.executable, "-c", code], capture_output=True, text=True, timeout=120,
+        cwd=str(__import__("pathlib").Path(__file__).resolve().parents[1]),
+    )
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.strip()) == len(modules) >= 20
