@@ -8,20 +8,29 @@ It imports nothing of JAX nor of the JAX package. Phases, in order:
 
 1. the card's name and power limit (nvidia-smi), and a check that TF32
    is off for float32 matrix products;
-2. each hand-written kernel (the Triton SBX and polynomial-mutation
-   kernels) is built from the checkout, launched at the main path's
-   shape (100, 30) and at (65536, 256), and held against its plain
-   PyTorch version on the same inputs on the card; its device time per
-   launch, the plain version's, the bytes it must move and its
-   memory-bandwidth bound are printed;
+2. each hand-written kernel is built from the checkout and held
+   against its plain PyTorch version on the same inputs on the card:
+   the standalone Triton SBX and polynomial-mutation kernels at
+   (100, 30) and (65536, 256), and the fused NSGA-II offspring kernel
+   at the step of each path driven below (the quick start's 100 pairs
+   of 30 genes from a population of 200, pool 100; the direct EA's 50
+   pairs from a population of 100, pool 50) and at 65536 pairs of 256
+   genes (population 131072, pool 65536), plus once with a live pool
+   smaller than the pool, as an adaptive population size passes it.
+   For each it prints the device
+   time per launch, the plain version's, the host time per call of
+   both, the bytes the function must move, GB/s, and the bound;
 3. direct NSGA-II on ZDT1 (pop 100, dim 30, 300 generations) on the
-   card, held to the reference test's front oracle;
+   card, held to the reference test's front oracle, with the kernel
+   launch counters reset just before it and read just after;
 4. the README quick start through `dmosopt_tpu_torch.run()` at full
    width (ZDT1 dim 30, pop 200, 100 generations, 3 epochs, 3 initial
-   points per dimension, `gpr` defaults), with the kernel launch
-   counters reset just before it and read just after, and its result
-   checked: archive size, finite values, a non-dominated returned set
-   that is closer to the front than the initial design.
+   points per dimension, `gpr` defaults), with the counters reset just
+   before it and read just after, and its result checked: archive size,
+   finite values, a non-dominated returned set that is closer to the
+   front than the initial design. Both runs must launch the fused
+   offspring kernel once per generation and the standalone kernels
+   never.
 
 The line before the last is a JSON object ``{"kernels": [...]}``; the
 last is ``{"ok": true, "device": {...}}``. Any failed check raises, so
@@ -41,16 +50,28 @@ import time
 # Mutation children are p + (ub-lb)*delta with |delta| <= 1, so their
 # error stays near 1e-7. An SBX child is 0.5*((1-beta)*p1 + (1+beta)*p2)
 # with beta up to ~3e3 as u -> 1, whose two products round at ~beta*ulp
-# before they cancel, so SBX is held to 1e-4.
-ATOL = {"mutation": 1e-5, "sbx": 1e-4}
+# before they cancel, so SBX, and the offspring that hold SBX children,
+# are held to 1e-4. The offspring kernel's operator tags must be exact.
+ATOL = {"mutation": 1e-5, "sbx": 1e-4, "offspring": 1e-4}
 # published H100 SXM peaks (NVIDIA data sheet), for the bound: HBM3
 # bandwidth and float32 (non-tensor-core) FLOP rate
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
 # floating-point operations per element of each kernel (counted from
-# the kernel source: pw, the power(s), the select, the children, clips)
+# the kernel source: pw, the power(s), the select, the children, clips);
+# an offspring gene needs SBX's on a crossover slot, two mutations'
+# otherwise
 FLOPS_PER_ELEMENT = {"mutation": 20, "sbx": 25}
 SHAPES = {"main": (100, 30), "large": (65536, 256)}
+# offspring step shapes: (npairs, n, population, pool size)
+OFFSPRING_SHAPES = {
+    "main": (100, 30, 200, 100),
+    "direct": (50, 30, 100, 50),
+    "large": (65536, 256, 131072, 65536),
+}
+# calls queued per timing round: the kernels launch once per call, the
+# standalone plain versions 15-25 times, the plain offspring step ~55
+TIMING_CALLS = {"kernel": 100, "mutation": 12, "sbx": 12, "offspring": 6}
 
 
 def _smi_line() -> str:
@@ -62,35 +83,40 @@ def _smi_line() -> str:
 
 
 def _device_ms_per_call(torch, fn, calls, rounds=5):
-    """Device time of one call of ``fn``: the median over ``rounds`` of
-    the time of ``calls`` back-to-back calls between one pair of CUDA
-    events, divided by ``calls`` (an event pair around each call would
-    add its own few microseconds to a kernel of about that length). Each
-    round is queued behind a sleep kernel, so the host's launch overhead
-    opens no gaps between the calls on the device; the check below fails
-    the run if the sleep ended before the host had queued them all (it
-    does when the stream's launch queue fills, so ``calls`` times the
-    launches per call must stay in the hundreds)."""
+    """(device ms, host ms) of one call of ``fn``: the device time is the
+    median over ``rounds`` of the time of ``calls`` back-to-back calls
+    between one pair of CUDA events, divided by ``calls`` (an event pair
+    around each call would add its own few microseconds to a kernel of
+    about that length); the host time is the median time the host took
+    to queue one call. Each round is queued behind a sleep kernel, so
+    the host's launch overhead opens no gaps between the calls on the
+    device; the check below fails the run if the sleep ended before the
+    host had queued them all (it does when the stream's launch queue
+    fills, so ``calls`` times the launches per call must stay in the
+    hundreds)."""
     fn()
     torch.cuda.synchronize()
     event = lambda: torch.cuda.Event(enable_timing=True)  # noqa: E731
-    per_call = []
+    per_call, host = [], []
     for _ in range(rounds):
         before, after, start, end = event(), event(), event(), event()
-        t0 = time.perf_counter()
+        t_sleep = time.perf_counter()
         before.record()
         torch.cuda._sleep(300_000_000)
         after.record()
         start.record()
+        t0 = time.perf_counter()
         for _ in range(calls):
             fn()
+        t1 = time.perf_counter()
         end.record()
-        enqueue_ms = (time.perf_counter() - t0) * 1e3
         torch.cuda.synchronize()
+        enqueue_ms = (t1 - t_sleep) * 1e3
         sleep_ms = before.elapsed_time(after)
         assert enqueue_ms < sleep_ms, ("timing window not covered", enqueue_ms, sleep_ms)
         per_call.append(start.elapsed_time(end) / calls)
-    return sorted(per_call)[rounds // 2]
+        host.append((t1 - t0) * 1e3 / calls)
+    return sorted(per_call)[rounds // 2], sorted(host)[rounds // 2]
 
 
 def _kernel_inputs(torch, name, B, n, seed):
@@ -109,6 +135,102 @@ def _kernel_inputs(torch, name, B, n, seed):
         return (rand(B, n), rand(B, n), di, xlb, xub, rate)
     di = torch.full((n,), 1.0, device="cuda")
     return (rand(B, n), rand(B, n), rand(B, n), di, xlb, xub)
+
+
+def _offspring_inputs(torch, npairs, n, pop, poolsize, seed, live=None):
+    """Operands of the main path's offspring step, in its layout: a
+    population in the unit box, a mating pool of distinct rows, the pair
+    and gene uniforms as views of one draw, the pool size as 0-d device
+    tensors (``live`` of the pool's slots, shift bound at least 2, when
+    given, as an adaptive population size passes it), the default
+    NSGA-II rates (pc 0.9, pm 0.1, rate 1/n, di 1 and 20) as device
+    tensors, and the bounds as the strided columns of an (n, 2) tensor."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    dev = "cuda"
+    parm = torch.rand((pop, n), generator=g, device=dev)
+    pool_idx = torch.randperm(pop, generator=g, device=dev)[:poolsize]
+    draws = torch.rand(3 * npairs * (n + 1), generator=g, device=dev)
+    r = draws[: 3 * npairs].view(3, npairs)
+    u = draws[3 * npairs:].view(3, npairs, n)
+    bounds = torch.stack([torch.zeros(n, device=dev), torch.ones(n, device=dev)], dim=1)
+    pool_n = shift_hi = torch.tensor(poolsize, dtype=torch.int32, device=dev)
+    if live is not None:
+        pool_n = torch.tensor(live, dtype=torch.int32, device=dev)
+        shift_hi = torch.clamp(pool_n, min=2)
+    scalar = lambda v: torch.tensor(v, dtype=torch.float32, device=dev)  # noqa: E731
+    return (parm, pool_idx, r, u, pool_n, shift_hi, scalar(0.9), scalar(0.1),
+            scalar(1.0 / n), torch.full((n,), 1.0, device=dev),
+            torch.full((n,), 20.0, device=dev), bounds[:, 0], bounds[:, 1])
+
+
+def _offspring_work(torch, V, args, is_x):
+    """(bytes, flops) the offspring step must move and do on these
+    inputs: each pair's three uniforms, the gene uniforms its operator
+    uses (one on a crossover slot, two on a mutation slot), the distinct
+    pool slots and population rows it gathers, the per-gene vectors and
+    rates once, the offspring and tags written once."""
+    parm, pool_idx, r, u, pool_n, shift_hi = args[:6]
+    npairs, n = u.shape[1], u.shape[2]
+    i1, i2 = V._pair_indices(r, pool_n, shift_hi)
+    slots = torch.unique(torch.cat([i1, i2]))
+    rows = torch.unique(pool_idx[slots]).numel()
+    nx = int(is_x.sum())
+    nm = npairs - nx
+    parts = {
+        "pair uniforms": 4 * r.numel(),
+        "gene uniforms used": 4 * n * (nx + 2 * nm),
+        "pool slots": 8 * slots.numel(),
+        "population rows": 4 * n * rows,
+        "per-gene vectors and rates": 4 * 4 * n + 3 * 4,
+        "offspring and tags": 4 * 2 * npairs * n + npairs,
+    }
+    print(f"   offspring {npairs}x{n}: {nx} crossover and {nm} mutation slots, "
+          f"{rows} distinct rows gathered for {2 * npairs} parents; bytes {parts}")
+    flops = n * (FLOPS_PER_ELEMENT["sbx"] * nx + 2 * FLOPS_PER_ELEMENT["mutation"] * nm)
+    return sum(parts.values()), flops
+
+
+def _row(torch, name, label, shape, err, kernel_fn, plain_fn, nbytes, flops):
+    ms, host_ms = _device_ms_per_call(torch, kernel_fn, calls=TIMING_CALLS["kernel"])
+    plain_ms, plain_host_ms = _device_ms_per_call(
+        torch, plain_fn, calls=TIMING_CALLS[name]
+    )
+    bytes_ms = 1e3 * nbytes / HBM_BYTES_PER_S
+    flops_ms = 1e3 * flops / F32_FLOPS_PER_S
+    row = {
+        "shape": list(shape), "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+        "host_ms": host_ms, "plain_host_ms": plain_host_ms, "bytes": nbytes,
+        "gb_per_s": nbytes / (ms * 1e-3) / 1e9,
+        "bound_ms": max(bytes_ms, flops_ms),
+        "bound_by": "bytes" if bytes_ms >= flops_ms else "operations",
+    }
+    print(
+        f"kernel {name} {label} {shape}: max_abs_err {err:.3e} (atol "
+        f"{ATOL[name]:g}), {ms * 1e3:.2f} us/launch, plain {plain_ms * 1e3:.2f} us; "
+        f"host {host_ms * 1e3:.2f} us/call, plain {plain_host_ms * 1e3:.2f} us/call; "
+        f"{nbytes} B, {row['gb_per_s']:.1f} GB/s, bound "
+        f"{row['bound_ms'] * 1e3:.3f} us ({row['bound_by']}, "
+        f"{row['bound_ms'] / ms:.3f} of it reached)"
+    )
+    return row
+
+
+def _check_offspring(torch, V, K, label, shape, live=None):
+    """The fused kernel against `_offspring_core` on one input set:
+    offspring within ATOL, operator tags bit-equal. Returns the args,
+    the error and the tags."""
+    npairs, n, pop, poolsize = shape
+    args = _offspring_inputs(torch, npairs, n, pop, poolsize, seed=npairs + n,
+                             live=live)
+    got, got_x = K.launch_offspring(*args)
+    want, want_x = V._offspring_core(*args)
+    torch.cuda.synchronize()
+    assert got.shape == (2 * npairs, n) and bool(torch.isfinite(got).all()), label
+    assert torch.equal(got_x, want_x), ("offspring operator tags differ", label)
+    assert 0 < int(got_x.sum()) < npairs, ("one operator only", label)
+    err = float((got - want).abs().max())
+    assert err <= ATOL["offspring"], ("offspring", label, err)
+    return args, err, got_x
 
 
 def check_kernels(torch, V):
@@ -132,29 +254,12 @@ def check_kernels(torch, V):
             err = max(float((a - b).abs().max()) for a, b in zip(got, want))
             assert all(bool(torch.isfinite(a).all()) for a in got), name
             assert err <= ATOL[name], (name, label, err, ATOL[name])
-            # one launch per kernel call (100 queued per round); the plain
-            # versions launch 15-25 (12 calls: about the same)
-            ms = _device_ms_per_call(torch, lambda: kernel(*args), calls=100)
-            plain_ms = _device_ms_per_call(torch, lambda: plain(*args), calls=12)
             # each input read once, each output written once (a strided
             # bounds column is n words read)
             nbytes = sum(t.numel() * t.element_size() for t in (*args, *got))
-            flops = FLOPS_PER_ELEMENT[name] * B * n
-            bytes_ms = 1e3 * nbytes / HBM_BYTES_PER_S
-            flops_ms = 1e3 * flops / F32_FLOPS_PER_S
-            rows[label] = {
-                "shape": [B, n], "max_abs_err": err, "ms": ms,
-                "plain_ms": plain_ms, "bytes": nbytes,
-                "gb_per_s": nbytes / (ms * 1e-3) / 1e9,
-                "bound_ms": max(bytes_ms, flops_ms),
-                "bound_by": "bytes" if bytes_ms >= flops_ms else "operations",
-            }
-            print(
-                f"kernel {name} {B}x{n}: max_abs_err {err:.3e} "
-                f"(atol {ATOL[name]:g}), {ms * 1e3:.2f} us/launch, plain "
-                f"{plain_ms * 1e3:.2f} us, {nbytes} B, "
-                f"{rows[label]['gb_per_s']:.1f} GB/s, bound "
-                f"{rows[label]['bound_ms'] * 1e3:.3f} us ({rows[label]['bound_by']})"
+            rows[label] = _row(
+                torch, name, label, (B, n), err, lambda: kernel(*args),
+                lambda: plain(*args), nbytes, FLOPS_PER_ELEMENT[name] * B * n,
             )
         report[name] = {
             "name": name,
@@ -163,10 +268,40 @@ def check_kernels(torch, V):
             "replaces": f"dmosopt_tpu/ops/variation.py:{line}",
             "rows": rows,
         }
+
+    rows = {}
+    for label, shape in OFFSPRING_SHAPES.items():
+        args, err, is_x = _check_offspring(torch, V, K, label, shape)
+        nbytes, flops = _offspring_work(torch, V, args, is_x)
+        rows[label] = _row(
+            torch, "offspring", label, shape, err, lambda: K.launch_offspring(*args),
+            lambda: V._offspring_core(*args), nbytes, flops,
+        )
+        npairs, n = shape[:2]
+        # every uniform and both parents' genes read once per pair, as a
+        # chain of separate launches would have to read them
+        all_bytes = 4 * (3 * npairs + 3 * npairs * n + 2 * npairs * n
+                         + 2 * npairs * n + 4 * n) + npairs
+        print(f"   offspring {label}: {all_bytes} B counting every uniform and "
+              f"both parents per pair; bound {1e6 * all_bytes / HBM_BYTES_PER_S:.3f} us")
+        rows[label]["bytes_all_uniforms_and_parents"] = all_bytes
+    _, err, _ = _check_offspring(torch, V, K, "main, live pool 37 of 100",
+                                 OFFSPRING_SHAPES["main"], live=37)
+    print(f"kernel offspring main, live pool 37 of 100: max_abs_err {err:.3e}")
+    report["offspring"] = {
+        "name": "offspring",
+        "route": "triton",
+        "source": "dmosopt_tpu_torch/ops/_variation_kernels.py",
+        # one launch in place of both Pallas kernels and the ops around
+        # them in the JAX generation (dmosopt_tpu/optimizers/nsga2.py:161-192)
+        "replaces": "dmosopt_tpu/ops/variation.py:90",
+        "also_replaces": "dmosopt_tpu/ops/variation.py:72",
+        "rows": rows,
+    }
     return report
 
 
-def direct_ea(torch):
+def direct_ea(torch, V):
     """Phase 3: NSGA-II on ZDT1 with the reference test's oracle."""
     import numpy as np
 
@@ -183,10 +318,14 @@ def direct_ea(torch):
     opt.initialize_strategy(x0, y0, bounds, random=1)
     gen = torch.Generator(device="cuda").manual_seed(2)
     torch.cuda.synchronize()
+    V.reset_kernel_launches()
     t0 = time.perf_counter()
     state = run_ea_loop(opt, opt.state, gen, gens, zdt1)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
+    launches = dict(V.KERNEL_LAUNCHES)
+    print(f"direct EA kernel launches: {launches}")
+    assert launches == {"offspring": gens, "sbx": 0, "mutation": 0}, launches
     y = state.population_obj.cpu().numpy()
     dists = distance_to_front(y, zdt1_pareto(1000))
     on = y[dists <= 0.01]
@@ -241,7 +380,8 @@ def quick_start(torch, V):
 
     n_gen = sum(s["n_generations"] for s in dopt.epoch_stats)
     assert n_gen == n_epochs * gens, n_gen
-    assert launches == {"sbx": n_gen, "mutation": 2 * n_gen}, launches
+    print(f"quick start kernel launches: {launches}")
+    assert launches == {"offspring": n_gen, "sbx": 0, "mutation": 0}, launches
 
     x_all, y_all = dopt.optimizer_dict[0].get_evals()
     n0 = n_initial * dim
@@ -288,7 +428,7 @@ def main() -> int:
     t0 = time.perf_counter()
     report = check_kernels(torch, V)
     print(f"kernels built and checked in {time.perf_counter() - t0:.1f} s")
-    direct_ea(torch)
+    direct_ea(torch, V)
     launches = quick_start(torch, V)
     assert "jax" not in sys.modules and "dmosopt_tpu" not in sys.modules
 
@@ -302,7 +442,10 @@ def main() -> int:
             "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
             "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
             "library_ms": None, "shape": main_row["shape"],
+            "host_ms": main_row["host_ms"], "plain_host_ms": main_row["plain_host_ms"],
             "large": rep["rows"]["large"],
+            **({"direct": rep["rows"]["direct"]} if "direct" in rep["rows"] else {}),
+            **({"also_replaces": rep["also_replaces"]} if "also_replaces" in rep else {}),
         })
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({

@@ -18,7 +18,7 @@ It profiles, with `torch.profiler` (host and device activity):
 For each it prints the wall time per generation (or per fit), the
 device's busy share (the device time of all kernels and copies over the
 wall time; one stream, so they never overlap), the device time of each
-launch of the two Triton kernels, the kernel launches, the
+launch of each Triton kernel, the kernel launches, the
 host syncs per generation (counted with CUDA sync debug mode, in a
 separate unprofiled pass) and the top operators by host and by device
 time. Nothing here imports JAX.
@@ -44,6 +44,7 @@ from dmosopt_tpu_torch.optimizers.base import run_ea_loop
 from dmosopt_tpu_torch.optimizers.nsga2 import NSGA2
 
 ACT = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+TRITON_KERNELS = ("mutation_kernel", "sbx_kernel", "offspring_kernel")
 
 
 def _device_us(evt) -> float:
@@ -76,7 +77,7 @@ def _profiled(label, fn, n_units, unit, out_dir):
           f"{launches / n_units:.1f} kernel launches and {syncs / n_units:.2f} "
           f"sync/copy calls per {unit}")
     for e in ka:
-        if _device_us(e) and e.key.startswith(("mutation_kernel", "sbx_kernel")):
+        if _device_us(e) and e.key.startswith(TRITON_KERNELS):
             print(f"   Triton {e.key}: {e.count} launches, "
                   f"{_device_us(e) / e.count:.3f} us each on the device")
     sort_dev = "self_device_time_total" if hasattr(ka[0], "self_device_time_total") \

@@ -23,6 +23,7 @@ default_sampling_methods = {
     "slh": "dmosopt_tpu_torch.sampling.slh",
     "lh": "dmosopt_tpu_torch.sampling.lh",
     "mc": "dmosopt_tpu_torch.sampling.mc",
+    "glp": "dmosopt_tpu_torch.sampling.glp",
 }
 
 default_optimizers = {

@@ -249,15 +249,13 @@ def xinit(
     xlb,
     xub,
     nPrevious: Optional[int] = None,
-    method="slh",
+    method="glp",
     maxiter: int = 5,
     local_random=None,
     logger=None,
 ):
     """Initial design of `nEval * nInput` points scaled to the bounds
-    (reference: dmosopt/MOASMO.py:134-193). The JAX package defaults to
-    GLP, which is not ported yet; the port's default is SLH, the
-    driver's default in both packages."""
+    (reference: dmosopt/MOASMO.py:134-193)."""
     nInput = len(param_names)
     Ninit = nInput * nEval
     xlb = np.asarray(xlb)

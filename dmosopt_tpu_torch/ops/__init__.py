@@ -17,6 +17,7 @@ from dmosopt_tpu_torch.ops.sort import (  # noqa: F401
 )
 from dmosopt_tpu_torch.ops.variation import (  # noqa: F401
     KERNEL_LAUNCHES,
+    offspring,
     polynomial_mutation,
     sbx_crossover,
     tournament_probabilities,

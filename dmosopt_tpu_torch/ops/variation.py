@@ -1,16 +1,21 @@
 """Batched variation operators: SBX crossover, polynomial mutation,
-tournament selection.
+the fused NSGA-II offspring step, tournament selection.
 
 Port of ``dmosopt_tpu/ops/variation.py``. As in the reference, the math
 of SBX and mutation is split into plain cores over PRECOMPUTED uniforms
 (`_mutation_core` / `_sbx_core`) and a hand-written kernel beside each
 (`dmosopt_tpu_torch/ops/_variation_kernels.py`, Triton, replacing the
-Pallas kernels `_mutation_pallas` :72 and `_sbx_pallas` :90). The route
-is chosen by the tensor's device alone: CUDA tensors launch the kernel,
-CPU tensors take the plain core. There is no switch and no fall-back: a
-CUDA tensor the kernel cannot take raises. `KERNEL_LAUNCHES` (the
-kernel module's own counts) tells how many times each kernel was
-launched, so a run can show that its generations went through them.
+Pallas kernels `_mutation_pallas` :72 and `_sbx_pallas` :90). NSGA-II's
+generation runs neither alone: `offspring` is its whole offspring step
+(pair picks, parent gather, SBX, both mutations, the operator select;
+``dmosopt_tpu/optimizers/nsga2.py:161-192``), with `_offspring_core` as
+the plain version built from the two cores and one Triton kernel for the
+card. The route is chosen by the tensor's device alone: CUDA tensors
+launch the kernel, CPU tensors take the plain core. There is no switch
+and no fall-back: a CUDA tensor the kernel cannot take raises.
+`KERNEL_LAUNCHES` (the kernel module's own counts) tells how many times
+each kernel was launched, so a run can show that its generations went
+through them.
 
 Weighted sampling without replacement is the Gumbel top-k trick, as in
 the reference; the lexsort it runs over is `ops.sort.lexsort`.
@@ -72,6 +77,57 @@ def sbx(u, parents1, parents2, di, xlb, xub):
     if parents1.is_cuda:
         return _variation_kernels.launch_sbx(u, parents1, parents2, di, xlb, xub)
     return _sbx_core(u, parents1, parents2, di, xlb, xub)
+
+
+def _pair_indices(r, pool_n, shift_hi):
+    """Two distinct mating-pool slots per pair (when ``pool_n >= 2``):
+    ``i1`` uniform on [0, pool_n) from ``r[0]``, ``i2`` = ``i1`` shifted by
+    a uniform draw on [1, shift_hi) from ``r[1]``, modulo ``pool_n``. The
+    float32 product truncates below ``pool_n`` because ``r < 1``."""
+    i1 = (r[0] * pool_n).long()
+    shift = 1 + (r[1] * (shift_hi - 1)).long()
+    return i1, (i1 + shift) % pool_n
+
+
+def _offspring_core(
+    parm, pool_idx, r, u, pool_n, shift_hi, crossover_prob, mutation_prob,
+    mutation_rate, di_crossover, di_mutation, xlb, xub,
+):
+    """One NSGA-II offspring step over precomputed uniforms — the plain
+    version of the fused offspring kernel. Pair slot i takes parents
+    ``parm[pool_idx[i1]]`` and ``parm[pool_idx[i2]]`` (`_pair_indices` on
+    ``r[0]``, ``r[1]``) and is a crossover slot when ``r[2] < 2pc/(2pc+pm)``
+    (a crossover event yields 2 children at rate pc, a mutation event 1
+    at rate pm). A crossover slot emits the SBX pair (uniforms ``u[0]``),
+    a mutation slot both parents mutated (``u[1]``, ``u[2]``). Returns the
+    (2*npairs, n) offspring, slot i's children in rows i and i+npairs,
+    and the (npairs,) bool operator tags."""
+    i1, i2 = _pair_indices(r, pool_n, shift_hi)
+    p1, p2 = parm[pool_idx[i1]], parm[pool_idx[i2]]
+    pc, pm = crossover_prob, mutation_prob
+    is_x = r[2] < (2.0 * pc) / (2.0 * pc + pm)
+    c1, c2 = _sbx_core(u[0], p1, p2, di_crossover, xlb, xub)
+    m1 = _mutation_core(u[1], p1, di_mutation, xlb, xub, mutation_rate)
+    m2 = _mutation_core(u[2], p2, di_mutation, xlb, xub, mutation_rate)
+    sel = is_x[:, None]
+    return torch.cat([torch.where(sel, c1, m1), torch.where(sel, c2, m2)]), is_x
+
+
+def offspring(
+    parm, pool_idx, r, u, pool_n, shift_hi, crossover_prob, mutation_prob,
+    mutation_rate, di_crossover, di_mutation, xlb, xub,
+):
+    """The NSGA-II offspring step of `_offspring_core`, routed by device:
+    the fused Triton kernel for CUDA tensors (one launch), the plain core
+    for CPU ones. ``pool_n``/``shift_hi`` are 0-d integer tensors (device
+    state under an adaptive population size) and the rates 0-d float
+    tensors, so AGE-MOEA and constrained sampling, which run the same
+    slot, can call it with their own state."""
+    args = (parm, pool_idx, r, u, pool_n, shift_hi, crossover_prob,
+            mutation_prob, mutation_rate, di_crossover, di_mutation, xlb, xub)
+    if parm.is_cuda:
+        return _variation_kernels.launch_offspring(*args)
+    return _offspring_core(*args)
 
 
 def _per_gene(v, like: torch.Tensor, n: int) -> torch.Tensor:

@@ -10,8 +10,9 @@ size. As in the JAX package, each generation emits a fixed batch of
 pair or two mutated parents — and the adaptive hyperparameters live in
 the state as device tensors, so a generation makes no host sync of its
 own (the rank relaxation in `ops.dominance` checks convergence once per
-`CHECK_EVERY` steps). SBX runs once and mutation twice per generation,
-through the Triton kernels on a CUDA device.
+`CHECK_EVERY` steps). A generation's offspring step (pair picks, parent
+gather, SBX, both mutations, operator select) is one call of
+`ops.offspring`, one Triton kernel launch on a CUDA device.
 """
 
 from __future__ import annotations
@@ -23,12 +24,7 @@ import torch
 
 from dmosopt_tpu_torch.optimizers.adaptive import adapt_population_size
 from dmosopt_tpu_torch.optimizers.base import MOEA
-from dmosopt_tpu_torch.ops import (
-    polynomial_mutation,
-    sbx_crossover,
-    sort_mo,
-    tournament_selection,
-)
+from dmosopt_tpu_torch.ops import offspring, sort_mo, tournament_selection
 
 
 @dataclass
@@ -161,34 +157,20 @@ class NSGA2(MOEA):
             shift_hi = torch.clamp(pool_n, min=2)
         else:
             pool_idx = tournament_selection(generator, poolsize, state.rank)
-            pool_n = shift_hi = poolsize
-        pool = state.population_parm[pool_idx]
+            pool_n = shift_hi = self._fixed_pool_n(poolsize, dev)
 
-        # two distinct parents per pair slot: i1 uniform on [0, pool_n),
-        # i2 = i1 shifted by a uniform draw on [1, pool_n)
-        r = torch.rand((2, npairs), generator=generator, device=dev)
-        i1 = (r[0] * pool_n).long()
-        shift = 1 + (r[1] * (shift_hi - 1)).long()
-        i2 = (i1 + shift) % pool_n
-        p1, p2 = pool[i1], pool[i2]
-
-        # operator per slot with the reference's relative frequencies: a
-        # crossover event yields 2 children at rate pc, a mutation event
-        # 1 child at rate pm -> P(slot is crossover) = 2 pc / (2 pc + pm)
-        pc, pm = state.crossover_prob, state.mutation_prob
-        p_slot_x = (2.0 * pc) / (2.0 * pc + pm)
-        is_x = torch.rand(npairs, generator=generator, device=dev) < p_slot_x
-
-        c1, c2 = sbx_crossover(generator, p1, p2, state.di_crossover, xlb, xub)
-        m1 = polynomial_mutation(
-            generator, p1, state.di_mutation, xlb, xub, state.mutation_rate
-        )
-        m2 = polynomial_mutation(
-            generator, p2, state.di_mutation, xlb, xub, state.mutation_rate
-        )
-        o1 = torch.where(is_x[:, None], c1, m1)
-        o2 = torch.where(is_x[:, None], c2, m2)
-        x_gen = torch.cat([o1, o2], dim=0)  # (2*npairs, n)
+        # one draw for the whole step: per pair slot the first parent's
+        # pick, the shift to the second and the operator draw (r); per
+        # gene the SBX and the two mutation uniforms (u)
+        n = state.population_parm.shape[1]
+        draws = torch.rand(3 * npairs * (n + 1), generator=generator, device=dev)
+        r = draws[: 3 * npairs].view(3, npairs)
+        u = draws[3 * npairs:].view(3, npairs, n)
+        x_gen, is_x = offspring(
+            state.population_parm, pool_idx, r, u, pool_n, shift_hi,
+            state.crossover_prob, state.mutation_prob, state.mutation_rate,
+            state.di_crossover, state.di_mutation, xlb, xub,
+        )  # (2*npairs, n): slot i's children in rows i and i+npairs
 
         # offspring slot i and i+npairs share one operator draw
         state = state._replace(
@@ -197,6 +179,14 @@ class NSGA2(MOEA):
             last_is_crossover=torch.cat([is_x, is_x]),
         )
         return x_gen, state
+
+    def _fixed_pool_n(self, poolsize: int, dev) -> torch.Tensor:
+        """The fixed pool size as a 0-d device tensor, made once: the
+        offspring step reads the pool size from the device in both modes."""
+        if getattr(self, "_pool_n_key", None) != (poolsize, dev):
+            self._pool_n_key = (poolsize, dev)
+            self._pool_n = torch.tensor(poolsize, dtype=torch.int32, device=dev)
+        return self._pool_n
 
     def update_strategy(self, state: NSGA2State, x_gen, y_gen) -> NSGA2State:
         pop = self.capacity

@@ -1,21 +1,27 @@
-"""Design-of-experiments samplers: MC, Latin hypercube, symmetric LH, with
-optional RGS de-correlation.
+"""Design-of-experiments samplers: MC, Latin hypercube, symmetric LH, good
+lattice points, with optional RGS de-correlation.
 
-Port of ``dmosopt_tpu/sampling.py`` for the samplers this slice runs.
+Port of ``dmosopt_tpu/sampling.py`` for the samplers the port carries.
 Every sampler maps ``(n, s, random, maxiter) -> (n, s)`` points in the
-unit box. The symmetric LH and the RGS decorrelation are numpy, copied
-verbatim, so for the same numpy Generator they give the reference's
-designs bit for bit. LH and MC draw from a CPU `torch.Generator` seeded
-like the reference's `as_key` (one draw from a numpy Generator), so they
-consume the caller's numpy stream in the same order as the reference,
-though their own numbers differ. GLP and Sobol are not ported yet.
+unit box. The symmetric LH, the GLP candidate lattices and the RGS
+decorrelation are numpy, copied verbatim, so for the same numpy
+Generator they give the reference's designs bit for bit. LH and MC draw
+from a CPU `torch.Generator` seeded like the reference's `as_key` (one
+draw from a numpy Generator), so they consume the caller's numpy stream
+in the same order as the reference, though their own numbers differ.
+GLP scores its candidate lattices by centered L2 discrepancy in float64
+(see `_score_and_pick`). Sobol is not ported yet.
 """
 
 from __future__ import annotations
 
+import itertools
+import math
+
 import numpy as np
 import torch
 
+from dmosopt_tpu_torch.discrepancy import CD2
 from dmosopt_tpu_torch.utils.prng import as_generator, as_torch_generator
 
 
@@ -49,6 +55,106 @@ def SymmetricLatinHypercubeDesign(n: int, s: int, random=None) -> np.ndarray:
         p[:k, j] = np.where(flip, pj, n - 1 - pj)
         p[n - 1 : n - 1 - k : -1, j] = np.where(flip, n - 1 - pj, pj)
     return (p + 0.5) / n
+
+
+# ------------------------------------------------------------------- GLP
+
+
+def _prime_factors(n: int) -> list[int]:
+    p, f = [], 2
+    while f * f <= n:
+        while n % f == 0:
+            p.append(f)
+            n //= f
+        f += 1
+    if n > 1:
+        p.append(n)
+    return p
+
+
+def euler_phi(n: int) -> int:
+    phi = n
+    for f in sorted(set(_prime_factors(n))):
+        phi -= phi // f
+    return phi
+
+
+def _lattice_points(n: int, h: np.ndarray) -> np.ndarray:
+    """u[i, j] = ((i+1) * h[j] - 1) mod n + 1 (reference glpmod,
+    dmosopt/GLP.py:130-139, where a 0 residue means n)."""
+    i = np.arange(1, n + 1)[:, None]
+    u = (i * h[None, :]) % n
+    u = np.where(u == 0, n, u)
+    return u.astype(float)
+
+
+def _power_gen_vectors(n: int, s: int) -> np.ndarray:
+    """Candidate generating vectors h = (a^0, ..., a^(s-1)) mod n for units a
+    whose first s powers are distinct and != 1 (reference dmosopt/GLP.py:105-127)."""
+    cands = []
+    for a in range(2, n):
+        if math.gcd(a, n) != 1:
+            continue
+        powers = np.mod([pow(a, t, n) for t in range(1, s)], n)
+        sp = np.sort(powers)
+        if sp[0] == 1 or np.any(sp[1:] == sp[:-1]):
+            continue
+        cands.append([pow(a, t, n) for t in range(s)])
+    return np.asarray(cands, dtype=float)
+
+
+# elements of one batch of pairwise products in `_score_and_pick`
+_CD2_BATCH_ELEMENTS = 1 << 24
+
+
+def _score_and_pick(designs: np.ndarray) -> np.ndarray:
+    """The candidate design of least centered L2 discrepancy, the first of
+    them where several tie. Lattices that are reflections or column
+    permutations of each other tie exactly, and the best ones usually
+    come in such sets. The scores are float64: in float32 (the JAX
+    package's) their rounding error exceeds the gaps between candidates,
+    so the float32 argmin among near-equal lattices follows the
+    reduction order of whatever computes it. Scores within a relative
+    1e-10 count as a tie, far above float64's error and below any gap
+    between lattices that do not tie."""
+    num, dim = designs.shape[1:]
+    per_batch = max(1, _CD2_BATCH_ELEMENTS // (num * num * dim))
+    x = torch.as_tensor(designs, dtype=torch.float64)
+    scores = torch.cat([CD2(x[i : i + per_batch]) for i in range(0, len(x), per_batch)])
+    best = scores.min()
+    return designs[int(torch.nonzero(scores <= best + 1e-10 * best)[0, 0])]
+
+
+def GoodLatticePointsDesign(n: int, s: int, random=None) -> np.ndarray:
+    """Number-theoretic uniform design (reference dmosopt/GLP.py:14-28):
+    when the Euler totient of n is too small, use n+1 points and drop the
+    last row; small cases enumerate totative combinations, large cases use
+    power generating vectors."""
+    if s == 1:
+        return LatinHypercubeDesign(n, 1, random)
+    m = euler_phi(n)
+    plusone = (m / n) < 0.9
+    small = m < 20 and s < 4  # branch on phi(n) before any n+1 adjustment
+    nn = n + 1 if plusone else n
+    m = euler_phi(nn) if plusone else m
+    if small:
+        h_all = np.asarray([i for i in range(nn) if math.gcd(i, nn) == 1])
+        combos = list(itertools.combinations(range(len(h_all)), s))
+        if len(combos) == 0:  # fewer totatives than dims (reference falls
+            return LatinHypercubeDesign(n, s, random)  # back to random design)
+        u = _lattice_points(nn, h_all)
+        designs = np.stack([u[:, list(c)] for c in combos])
+    else:
+        hs = _power_gen_vectors(nn, s)
+        if len(hs) == 0:
+            return LatinHypercubeDesign(n, s, random)
+        designs = np.stack([_lattice_points(nn, h) for h in hs])
+
+    if plusone:
+        designs = (designs[:, : nn - 1, :] - 0.5) / (nn - 1)
+    else:
+        designs = (designs - 0.5) / nn
+    return np.asarray(_score_and_pick(designs))
 
 
 # ------------------------------------------------- RGS de-correlation
@@ -101,3 +207,7 @@ def lh(n, s, random=None, maxiter=0):
 
 def slh(n, s, random=None, maxiter=0):
     return _with_decorr(SymmetricLatinHypercubeDesign(n, s, random), maxiter)
+
+
+def glp(n, s, random=None, maxiter=0):
+    return _with_decorr(GoodLatticePointsDesign(n, s, random), maxiter)

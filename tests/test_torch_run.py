@@ -134,7 +134,7 @@ def test_unported_driver_options_raise(option):
 
 @pytest.mark.parametrize(
     "option", [{"optimizer_name": "age"}, {"surrogate_method_name": "egp"},
-               {"initial_method": "glp"}],
+               {"initial_method": "sobol"}],
 )
 def test_unported_components_raise(option):
     with pytest.raises(NotImplementedError):
