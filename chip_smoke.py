@@ -14,8 +14,9 @@ It imports nothing of JAX nor of the JAX package. Phases, in order:
    (100, 30) and (65536, 256), and the fused NSGA-II offspring kernel
    at the step of each path driven below (the quick start's 100 pairs
    of 30 genes from a population of 200, pool 100; the direct EA's 50
-   pairs from a population of 100, pool 50) and at 65536 pairs of 256
-   genes (population 131072, pool 65536), plus once with a live pool
+   pairs from a population of 100, pool 50; the file-backed run's 50
+   pairs of 10 genes from a population of 100, pool 50) and at 65536
+   pairs of 256 genes (population 131072, pool 65536), plus once with a live pool
    smaller than the pool, as an adaptive population size passes it.
    For each it prints the device
    time per launch, the plain version's, the host time per call of
@@ -30,7 +31,20 @@ It imports nothing of JAX nor of the JAX package. Phases, in order:
    finite values, a non-dominated returned set that is closer to the
    front than the initial design. Both runs must launch the fused
    offspring kernel once per generation and the standalone kernels
-   never.
+   never;
+5. the host-objective run of ``examples/example_zdt1_file.py`` at its
+   full width (ZDT1 of a parameter dict, 10 parameters, pop 100, 50
+   generations, 5 initial points per dimension, 2 epochs, seed 21) on a
+   thread pool of 4 workers in the default ``overlap_io`` pipeline,
+   with the counters reset just before it and read just after: it must
+   launch the fused kernel once per generation and the standalone ones
+   never, archive every evaluated row once, and leave no thread behind.
+   The chip machine has no h5py, so the run has no store and this phase
+   no save-and-resume step (the CPU tests hold that path). Then the same
+   configuration with an objective that sleeps 20 ms per call, in the
+   ``serial`` and ``speculative`` pipelines in turns (serial,
+   speculative, speculative, serial), printing each epoch's wall time,
+   GP fit time and the wall the driver spent draining evaluations.
 
 The line before the last is a JSON object ``{"kernels": [...]}``; the
 last is ``{"ok": true, "device": {...}}``. Any failed check raises, so
@@ -67,6 +81,7 @@ SHAPES = {"main": (100, 30), "large": (65536, 256)}
 OFFSPRING_SHAPES = {
     "main": (100, 30, 200, 100),
     "direct": (50, 30, 100, 50),
+    "file": (50, 10, 100, 50),
     "large": (65536, 256, 131072, 65536),
 }
 # calls queued per timing round: the kernels launch once per call, the
@@ -408,6 +423,120 @@ def quick_start(torch, V):
     return launches
 
 
+FILE_DIM = 10
+
+
+def _example_zdt1(pp):
+    """examples/example_zdt1_file.py's objective: ZDT1 of a parameter dict."""
+    import numpy as np
+
+    x = np.array([pp[f"x{i + 1}"] for i in range(FILE_DIM)])
+    f1 = x[0]
+    g = 1.0 + 9.0 / (FILE_DIM - 1) * np.sum(x[1:])
+    return np.array([f1, g * (1.0 - np.sqrt(f1 / g))])
+
+
+def _sleepy_zdt1(pp):
+    time.sleep(0.02)
+    return _example_zdt1(pp)
+
+
+def _file_params(opt_id, obj_fun, **over):
+    """examples/example_zdt1_file.py's parameters, without its store."""
+    params = {
+        "opt_id": opt_id,
+        "obj_fun": obj_fun,
+        "problem_parameters": {},
+        "space": {f"x{i + 1}": [0.0, 1.0] for i in range(FILE_DIM)},
+        "objective_names": ["y1", "y2"],
+        "population_size": 100,
+        "num_generations": 50,
+        "optimizer_name": "nsga2",
+        "surrogate_method_name": "gpr",
+        "n_initial": 5,
+        "n_epochs": 2,
+        "random_seed": 21,
+        "n_eval_workers": 4,
+    }
+    params.update(over)
+    return params
+
+
+def _check_file_run(dopt, n_epochs):
+    """Archive of the example's run: the initial design plus a resample
+    batch per epoch but the last, each evaluated row archived once."""
+    import numpy as np
+
+    x_all, y_all = dopt.optimizer_dict[0].get_evals()
+    n0 = 5 * FILE_DIM
+    n_resample = int(100 * dopt.resample_fraction)
+    assert x_all.shape[0] == dopt.eval_count == n0 + (n_epochs - 1) * n_resample, (
+        x_all.shape, dopt.eval_count)
+    assert np.all(np.isfinite(x_all)) and np.all(np.isfinite(y_all))
+    assert [s["epoch"] for s in dopt.epoch_stats] == list(range(n_epochs))
+    assert not dopt._inflight
+
+
+def file_backed(torch, V, smi):
+    """Phase 5: the example's host-objective run on a thread pool, and
+    the serial and speculative pipelines with a slow objective."""
+    import threading
+
+    import dmosopt_tpu_torch
+    from dmosopt_tpu_torch.driver import dopt_dict
+
+    threads_before = threading.active_count()
+    V.reset_kernel_launches()
+    t0 = time.perf_counter()
+    dmosopt_tpu_torch.run(_file_params("zdt1_file", _example_zdt1), verbose=False)
+    wall = time.perf_counter() - t0
+    launches = dict(V.KERNEL_LAUNCHES)
+    dopt = dopt_dict["zdt1_file"]
+    n_gen = sum(s["n_generations"] for s in dopt.epoch_stats)
+    print(f"file-backed run kernel launches: {launches}")
+    assert n_gen == 2 * 50, n_gen
+    assert launches == {"offspring": n_gen, "sbx": 0, "mutation": 0}, launches
+    _check_file_run(dopt, 2)
+    assert dopt.pipeline.mode == "overlap_io"
+    threads_after = threading.active_count()
+    assert threads_after == threads_before, (threads_before, threads_after)
+    st = dopt.pipeline_stats
+    print(
+        f"[{smi}] file-backed run (4 workers, overlap_io): run() {wall:.3f} s, "
+        f"{dopt.eval_count} evaluations, drain wall {st['eval_wait_s']:.4f} s, "
+        f"evaluation overlapped with other work {st['eval_overlap_s']:.4f} s; "
+        f"threads {threads_before} before, {threads_after} after"
+    )
+
+    for turn, mode in enumerate(("serial", "speculative", "speculative", "serial")):
+        opt_id = f"zdt1_file_{mode}_{turn}"
+        t0 = time.perf_counter()
+        dmosopt_tpu_torch.run(
+            _file_params(opt_id, _sleepy_zdt1, pipeline=mode), verbose=False
+        )
+        wall = time.perf_counter() - t0
+        dopt = dopt_dict[opt_id]
+        _check_file_run(dopt, 2)
+        st = dopt.pipeline_stats
+        if mode == "speculative":
+            assert st["quorum_returns"] == 1 and st["stragglers"] > 0, st
+        for s in dopt.epoch_stats:
+            n_steps = s["objective"]["n_steps"]
+            print(
+                f"[{smi}] {mode} (turn {turn}) epoch {s['epoch']}: "
+                f"{s['epoch_s']:.3f} s, GP fit {s['train_s']:.3f} s "
+                f"({n_steps} Adam steps, {1e3 * s['train_s'] / n_steps:.2f} ms "
+                f"each), evaluation drain {s['eval_wait_s']:.3f} s"
+            )
+        print(
+            f"[{smi}] {mode} (turn {turn}): run() {wall:.3f} s; quorum returns "
+            f"{st['quorum_returns']}, stragglers {st['stragglers']}, evaluation "
+            f"overlapped with other work {st['eval_overlap_s']:.3f} s"
+        )
+    assert threading.active_count() == threads_before
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -417,7 +546,8 @@ def main() -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from dmosopt_tpu_torch.ops import variation as V
 
-    print(_smi_line())
+    smi = _smi_line()
+    print(smi)
     assert torch.backends.cuda.matmul.allow_tf32 is False
     assert torch.get_float32_matmul_precision() == "highest"
     print(
@@ -430,6 +560,7 @@ def main() -> int:
     print(f"kernels built and checked in {time.perf_counter() - t0:.1f} s")
     direct_ea(torch, V)
     launches = quick_start(torch, V)
+    launches_file = file_backed(torch, V, smi)
     assert "jax" not in sys.modules and "dmosopt_tpu" not in sys.modules
 
     kernels = []
@@ -438,13 +569,14 @@ def main() -> int:
         kernels.append({
             "name": rep["name"], "route": rep["route"], "source": rep["source"],
             "replaces": rep["replaces"], "launches": launches[name],
+            "launches_file_run": launches_file[name],
             "max_abs_err": max(r["max_abs_err"] for r in rep["rows"].values()),
             "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
             "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
             "library_ms": None, "shape": main_row["shape"],
             "host_ms": main_row["host_ms"], "plain_host_ms": main_row["plain_host_ms"],
             "large": rep["rows"]["large"],
-            **({"direct": rep["rows"]["direct"]} if "direct" in rep["rows"] else {}),
+            **{k: rep["rows"][k] for k in ("direct", "file") if k in rep["rows"]},
             **({"also_replaces": rep["also_replaces"]} if "also_replaces" in rep else {}),
         })
     print(json.dumps({"kernels": kernels}))

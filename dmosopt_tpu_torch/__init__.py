@@ -1,11 +1,12 @@
 """dmosopt_tpu_torch: the PyTorch/CUDA port of dmosopt_tpu.
 
 A second package beside the JAX one, slice by slice, with the JAX package
-as its reference. This slice runs the MO-ASMO quick start — `run()` with
-NSGA-II against an exact-GP surrogate — on a CUDA device, with the SBX
-and polynomial-mutation kernels as Triton kernels (see
-`dmosopt_tpu_torch.ops.variation`). It imports neither jax nor
-dmosopt_tpu.
+as its reference. It runs MO-ASMO — `run()` with NSGA-II against an
+exact-GP surrogate — on a CUDA device, with the variation kernels as
+Triton kernels (see `dmosopt_tpu_torch.ops.variation`), host objectives
+on a thread pool under the JAX package's pipeline modes, and the HDF5
+store it saves to and resumes from (`dmosopt_tpu_torch.storage`). It
+imports neither jax nor dmosopt_tpu.
 """
 
 __version__ = "0.1.0"

@@ -1,21 +1,31 @@
 """Top-level driver: `run()`, `dopt_init` and `DistOptimizer`.
 
 Port of ``dmosopt_tpu/driver.py`` (reference dmosopt/dmosopt.py:546-2571)
-on this slice's path: one problem, the serial epoch pipeline, no
-telemetry, no persistence. Evaluation goes to the inline host-function
-evaluator, or, with ``torch_objective=True``, to one call of a batched
-torch objective per round of requests on the run's device. ``device``
-None means CUDA; a machine without one raises unless the caller passes
-``device="cpu"``. The driver options of the JAX package that this port
-does not carry yet (persistence and resume, multiple problems,
-features, thread pools and pipelines, meshes, telemetry, termination
-criteria, dynamic initial sampling, the other optimizers and
-surrogates) raise `NotImplementedError` instead of being ignored.
+for one problem without telemetry: the epoch loop, the HDF5 store (save
+every ``save_eval`` evaluations, the surrogate's evaluations, optimizer
+parameters and stats per epoch) and resuming from it, and the three
+pipeline modes (``serial``, ``overlap_io``, the default, and
+``speculative``) with per-request timeouts, retries and failure
+policies. Evaluation goes to the host-function evaluator, inline or on
+a thread pool of ``n_eval_workers``, or, with ``torch_objective=True``,
+to a batched torch objective on the run's device. ``device`` None means
+CUDA; a machine without one raises unless the caller passes
+``device="cpu"``.
+
+The driver options of the JAX package that this port does not carry
+yet raise `NotImplementedError` instead of being ignored: several
+problems (``problem_ids``), features, dynamic initial sampling,
+termination conditions, custom surrogate training, mean-variance
+optimization, sensitivity and feasibility methods, ``jax_objective``,
+an external ``evaluator``, meshes, tenant batching, telemetry, and
+surrogate refit modes other than cold. A store written with features
+or several problems cannot be resumed here either.
 """
 
 from __future__ import annotations
 
 import logging
+import os
 import time
 from functools import partial
 from typing import Dict
@@ -23,6 +33,7 @@ from typing import Dict
 import numpy as np
 import torch
 
+from dmosopt_tpu_torch import storage
 from dmosopt_tpu_torch.config import as_tuple as _as_tuple, import_object_by_path
 from dmosopt_tpu_torch.datatypes import (
     OptProblem,
@@ -30,7 +41,12 @@ from dmosopt_tpu_torch.datatypes import (
     StrategyState,
     update_nested_dict,
 )
-from dmosopt_tpu_torch.parallel.evaluator import HostFunEvaluator, TorchBatchEvaluator
+from dmosopt_tpu_torch.parallel.evaluator import (
+    EvalFailure,
+    HostFunEvaluator,
+    TorchBatchEvaluator,
+)
+from dmosopt_tpu_torch.parallel.pipeline import BackgroundWriter, PipelineConfig
 from dmosopt_tpu_torch.strategy import DistOptStrategy
 from dmosopt_tpu_torch.utils.device import resolve_device
 from dmosopt_tpu_torch.utils.prng import as_generator
@@ -68,6 +84,29 @@ def eval_obj_fun_sp(
     return {problem_id: result, "time": time.time() - started}
 
 
+class _InflightBatch:
+    """One asynchronously submitted evaluation batch mid-collection.
+
+    Results arrive in completion order, buffer here and fold in
+    submission order (``next_fold`` is the first round not yet folded),
+    so the archive's row order does not depend on which call finished
+    first. ``blocked`` is the wall time the driver spent waiting in
+    ``poll``; the rest of the handle's life overlapped driver work."""
+
+    __slots__ = ("handle", "task_reqs", "buffered", "next_fold", "blocked")
+
+    def __init__(self, handle, task_reqs):
+        self.handle = handle
+        self.task_reqs = task_reqs
+        self.buffered = {}
+        self.next_fold = 0
+        self.blocked = 0.0
+
+    @property
+    def total(self) -> int:
+        return len(self.task_reqs)
+
+
 # driver options of the JAX package that are not ported, with the value
 # that means "not used"
 _UNPORTED_DEFAULTS = {
@@ -75,8 +114,7 @@ _UNPORTED_DEFAULTS = {
     "dynamic_initial_sampling": None, "termination_conditions": None,
     "surrogate_custom_training": None, "optimize_mean_variance": False,
     "sensitivity_method_name": None, "feasibility_method_name": None,
-    "file_path": None, "save": False, "jax_objective": False,
-    "evaluator": None, "n_eval_workers": 1, "mesh": None,
+    "jax_objective": False, "evaluator": None, "mesh": None,
     "tenant_batching": False,
 }
 
@@ -100,17 +138,26 @@ class DistOptimizer:
         distance_metric=None, time_limit=None,
         optimizer_name="nsga2", optimizer_kwargs=None,
         surrogate_method_name="gpr", surrogate_method_kwargs=None,
-        surrogate_refit=None, pipeline=None, telemetry=None,
+        surrogate_refit=None, telemetry=None,
         random_seed=None, local_random=None,
-        torch_objective=False, device=None,
+        file_path=None, save=False, save_eval=10,
+        save_surrogate_evals=False, save_optimizer_params=True,
+        metadata=None,
+        torch_objective=False, n_eval_workers=1, pipeline=None, device=None,
         verbose=False,
         **kwargs,
     ) -> None:
         """MO-ASMO optimization driver (reference dmosopt/dmosopt.py:546-630).
 
+        file_path, save, save_eval: the HDF5 store; when the file exists
+          the run resumes from it (its seed, space and archive win).
+        n_eval_workers: thread-pool width for host objectives.
+        pipeline: ``"serial"``, ``"overlap_io"`` (None), ``"speculative"``,
+          or a dict / `PipelineConfig` with ``quorum_fraction``,
+          ``eval_timeout``, ``eval_retries``, ``on_eval_failure`` and
+          ``torch_eval_chunks``.
         torch_objective: `obj_fun` maps a (B, n) float32 tensor of flat
-          parameter vectors on ``device`` to objectives (B, d); each round
-          of requests is one call.
+          parameter vectors on ``device`` to objectives (B, d).
         device: where the surrogate, the inner EA and a torch objective
           run; None means CUDA (and raises without one).
         """
@@ -120,28 +167,25 @@ class DistOptimizer:
         )
         if surrogate_refit not in (None, "cold"):
             bad.append("surrogate_refit")
-        if pipeline not in (None, "serial"):
-            bad.append("pipeline")
         if telemetry not in (None, False):
             bad.append("telemetry")
-        if torch_objective and constraint_names is not None:
-            bad.append("constraint_names with torch_objective")
         if bad:
             raise NotImplementedError(
                 f"DistOptimizer options not ported to dmosopt_tpu_torch: {bad}"
+            )
+        self.pipeline = PipelineConfig.from_spec(pipeline)
+        if self.pipeline.on_eval_failure == "skip" and surrogate_method_name is None:
+            # without a surrogate each generation is evaluated for real and
+            # sent back row-aligned; a dropped round would misalign it
+            raise ValueError(
+                "on_eval_failure='skip' requires a surrogate "
+                "(surrogate_method_name=None evaluates whole generations "
+                "whose results must stay row-aligned)"
             )
         if random_seed is not None:
             if local_random is not None:
                 raise RuntimeError("pass either random_seed or local_random, not both")
             local_random = np.random.default_rng(seed=random_seed)
-        if local_random is None:
-            local_random = as_generator(random_seed)
-        if space is None or problem_parameters is None:
-            raise ValueError(
-                "no problem definition: pass `space` and `problem_parameters`"
-            )
-        if objective_names is None:
-            raise ValueError("objective_names is required")
 
         self.device = resolve_device(device)
         self.__dict__.update(
@@ -154,7 +198,8 @@ class DistOptimizer:
             initial_maxiter=initial_maxiter, initial_method=initial_method,
             n_epochs=n_epochs, obj_fun_args=obj_fun_args,
             reduce_fun=reduce_fun, reduce_fun_args=reduce_fun_args,
-            constraint_names=constraint_names, objective_names=objective_names,
+            constraint_names=constraint_names, metadata=metadata,
+            save_eval=save_eval,
         )
         self.resample_fraction = min(float(resample_fraction), 1.0)
         self.surrogate_method_kwargs = surrogate_method_kwargs or {}
@@ -164,35 +209,84 @@ class DistOptimizer:
             if optimizer_kwargs is not None
             else {"mutation_prob": 0.1, "crossover_prob": 0.9}
         )
+        self.save_surrogate_evals_ = save_surrogate_evals
+        self.save_optimizer_params_ = save_optimizer_params
+        self._writer = None  # lazy BackgroundWriter (overlap modes only)
+        self._inflight = []  # _InflightBatch stragglers awaiting reconcile
         self.start_time = time.time()
         self.logger = logging.getLogger(opt_id)
         if self.verbose:
             self.logger.setLevel(logging.INFO)
 
-        param_space = ParameterSpace.from_dict(space)
-        if param_space.n_parameters == 0:
+        self._check_persistence_config(file_path, save, problem_parameters, space)
+        param_space = ParameterSpace.from_dict(space) if space is not None else None
+        if problem_parameters is not None:
+            problem_parameters = ParameterSpace.from_dict(
+                problem_parameters, is_value_only=True
+            )
+        # one process: resume exactly when the file exists
+        resuming = file_path is not None and os.path.isfile(file_path)
+        self.old_evals = {}
+        self.start_epoch = 0
+        if resuming:
+            (seed, max_epoch, self.old_evals, param_space, objective_names,
+             feature_dtypes, constraint_names, problem_parameters,
+             problem_ids) = self._restore_from_file(file_path, param_space)
+            if feature_dtypes is not None or problem_ids is not None:
+                raise NotImplementedError(
+                    "resuming a store with features or several problems is "
+                    "not ported to dmosopt_tpu_torch"
+                )
+            self.constraint_names = constraint_names
+            self.start_epoch = max(max_epoch, 0)
+            if seed is not None:
+                if self.local_random is not None:
+                    self.logger.warning(
+                        "checkpoint carries a random seed; it takes "
+                        "precedence over the provided RNG"
+                    )
+                self.local_random = np.random.default_rng(seed=seed)
+        if self.local_random is None:
+            self.local_random = as_generator(random_seed)
+
+        if param_space is None or param_space.n_parameters == 0:
             raise ValueError("empty parameter space")
-        problem_parameters = ParameterSpace.from_dict(
-            problem_parameters, is_value_only=True
-        )
-        if not set(param_space.parameter_names).isdisjoint(
-            problem_parameters.parameter_names
-        ):
+        if objective_names is None:
+            raise ValueError("objective_names is required")
+        if problem_parameters is not None and not set(
+            param_space.parameter_names
+        ).isdisjoint(problem_parameters.parameter_names):
             raise ValueError(
                 "problem_parameters and space must not share parameter names"
             )
+        if torch_objective and self.constraint_names is not None:
+            raise NotImplementedError(
+                "DistOptimizer options not ported to dmosopt_tpu_torch: "
+                "['constraint_names with torch_objective']"
+            )
         self.param_space = param_space
         self.param_names = param_space.parameter_names
+        self.objective_names = objective_names
         self.problem_parameters = problem_parameters
+        self.file_path, self.save = file_path, save
+        self.problem_ids = {0}
         for okw in self.optimizer_kwargs:
             # per-parameter distribution indices may come as nested dicts
             for di_key in ("di_crossover", "di_mutation"):
                 if okw and isinstance(okw.get(di_key), dict):
                     okw[di_key] = param_space.flatten(okw[di_key])
 
-        self.epoch_count = self.eval_count = 0
-        self.optimizer_dict = {}
-        self.epoch_stats = []  # per-epoch wall time and strategy stats
+        self.epoch_count = self.eval_count = self.saved_eval_count = 0
+        self.optimizer_dict, self.storage_dict, self.stats = {}, {}, {}
+        self.epoch_stats = []  # per-epoch wall times and strategy stats
+        # evaluation and persistence accounting: wall the driver spent
+        # draining evaluations, the part of async evaluation that ran
+        # behind other driver work, quorum returns and their stragglers,
+        # and the count and wall of store writes
+        self.pipeline_stats = {
+            "eval_wait_s": 0.0, "eval_overlap_s": 0.0, "quorum_returns": 0,
+            "stragglers": 0, "h5_writes": 0, "h5_write_s": 0.0,
+        }
 
         self.eval_fun = partial(
             eval_obj_fun_sp, obj_fun, self.problem_parameters, self.param_space,
@@ -201,18 +295,111 @@ class DistOptimizer:
         self.evaluator = (
             TorchBatchEvaluator(obj_fun, self.device)
             if torch_objective
-            else HostFunEvaluator(self.eval_fun)
+            else HostFunEvaluator(self.eval_fun, n_workers=n_eval_workers)
         )
 
+        if self.save and not resuming:
+            storage.init_h5(
+                self.opt_id, self.problem_ids, False, self.param_space,
+                self.param_names, self.objective_names, None,
+                self.constraint_names, self.problem_parameters, self.metadata,
+                self.random_seed, self.file_path,
+            )
+
+    # --------------------------------------------------------- init helpers
+
+    @staticmethod
+    def _check_persistence_config(file_path, save, problem_parameters, space):
+        """A run needs a problem definition from somewhere: inline
+        (`space` + `problem_parameters`) or a checkpoint file."""
+        definition_inline = problem_parameters is not None and space is not None
+        if file_path is None:
+            if not definition_inline:
+                raise ValueError(
+                    "no problem definition: pass `space` and "
+                    "`problem_parameters`, or a checkpoint `file_path`"
+                )
+            if save:
+                raise ValueError("save=True requires a `file_path`")
+        elif not os.path.isfile(file_path) and not definition_inline:
+            raise FileNotFoundError(file_path)
+
+    def _restore_from_file(self, file_path, param_space):
+        """The checkpoint tuple of `storage.init_from_h5`."""
+        known_names = param_space.parameter_names if param_space is not None else None
+        return storage.init_from_h5(file_path, known_names, self.opt_id, self.logger)
+
+    # -------------------------------------------------------------- stats
+
+    @staticmethod
+    def _collapse_phase_pairs(stats):
+        """Collapse paired `<phase>_start`/`<phase>_end` timestamps into
+        a single `<phase>` duration; other keys pass through."""
+        out = {}
+        for key, value in stats.items():
+            name, _, period = key.rpartition("_")
+            if period == "start":
+                end = stats.get(f"{name}_end")
+                if end is not None:
+                    out[name] = end - value
+            elif period != "end":
+                out[key] = value
+        return out
+
+    def get_stats(self):
+        """The driver's and the strategy's stats, with paired
+        `<phase>_start`/`<phase>_end` timestamps collapsed into one
+        `<phase>` duration."""
+        strategy = self.optimizer_dict.get(0)
+        if strategy is not None:
+            self.stats.update(strategy.stats)
+        return self._collapse_phase_pairs(self.stats)
+
     # ----------------------------------------------------- strategy setup
+
+    def _restored_initial(self, problem_id):
+        """Archive tuple (epochs, x, y, f, c) restored from the checkpoint,
+        or None when this problem starts fresh. Non-finite objective rows
+        are dropped: they must not re-enter GP training through a restart."""
+        evals = self.old_evals.get(problem_id)
+        if not evals:
+            return None
+        finite = [
+            bool(np.all(np.isfinite(np.asarray(e.objectives, np.float64))))
+            for e in evals
+        ]
+        if not all(finite):
+            self.logger.warning(
+                f"problem {problem_id}: dropped {len(finite) - sum(finite)} "
+                f"non-finite objective row(s) from the restored archive"
+            )
+            evals = [e for e, ok in zip(evals, finite) if ok]
+            if not evals:
+                return None
+        epochs = None
+        if evals[0].epoch is not None:
+            epochs = np.concatenate([e.epoch for e in evals], axis=None)
+        x = np.vstack([e.parameters for e in evals])
+        y = np.vstack([e.objectives for e in evals])
+        c = None
+        if self.constraint_names is not None:
+            c = np.vstack([e.constraints for e in evals])
+        return (epochs, x, y, None, c)
 
     def initialize_strategy(self):
         opt_prob = OptProblem(
             self.param_names, self.objective_names, self.constraint_names,
             self.param_space,
         )
+        initial = self._restored_initial(0)
+        if initial is not None and initial[1].shape[0] >= self.n_initial * len(
+            self.param_names
+        ):
+            # a complete initial design means the restored max epoch is
+            # done: new epochs continue after it
+            self.start_epoch += 1
         self.optimizer_dict[0] = DistOptStrategy(
-            opt_prob, n_initial=self.n_initial,
+            opt_prob, n_initial=self.n_initial, initial=initial,
             initial_method=self.initial_method,
             initial_maxiter=self.initial_maxiter,
             population_size=self.population_size,
@@ -226,6 +413,9 @@ class DistOptimizer:
             local_random=self.local_random, logger=self.logger,
             device=self.device,
         )
+        self.storage_dict[0] = []
+        if initial is not None:
+            self.print_best()
 
     # ------------------------------------------------------------ queries
 
@@ -260,6 +450,94 @@ class DistOptimizer:
             prms_i = {k: prms_dict[k][i] for k in prms_dict}
             self.logger.info(f"Best eval {i} so far: {res_i}@{prms_i}")
 
+    # -------------------------------------------------------- persistence
+
+    def _timed_write(self, fn, *args, **kwargs):
+        t0 = time.perf_counter()
+        fn(*args, **kwargs)
+        self.pipeline_stats["h5_write_s"] += time.perf_counter() - t0
+        self.pipeline_stats["h5_writes"] += 1
+
+    def _submit_write(self, fn, *args, **kwargs):
+        """One persistence write: inline in serial mode, queued to the
+        ordered background writer in the overlap modes. The caller hands
+        over host values only (numpy arrays, Python scalars), built
+        before the call, so the writer thread never touches a device
+        tensor or live driver state; the writer runs closures in
+        submission order, so the file sees the serial loop's writes."""
+        if not self.pipeline.overlaps_io:
+            self._timed_write(fn, *args, **kwargs)
+            return
+        if self._writer is None:
+            self._writer = BackgroundWriter()
+        self._writer.submit(self._timed_write, fn, *args, **kwargs)
+
+    def _flush_writes(self):
+        """Block until every queued write is in the file (end of each
+        epoch, run teardown)."""
+        if self._writer is not None:
+            self._writer.flush()
+
+    def _close_writer(self):
+        if self._writer is not None:
+            self._writer.close()
+            self._writer = None
+
+    def save_evals(self):
+        """Append the finished evaluations to the store."""
+        n_pred = len(self.objective_names)
+        finished = {}
+        for problem_id in self.problem_ids:
+            rows = self.storage_dict[problem_id]
+            if rows:
+                finished[problem_id] = (
+                    [e.epoch for e in rows],
+                    [e.parameters for e in rows],
+                    [e.objectives for e in rows],
+                    None,
+                    [e.constraints for e in rows]
+                    if self.constraint_names is not None
+                    else None,
+                    [
+                        [np.nan] * n_pred if e.prediction is None else e.prediction
+                        for e in rows
+                    ],
+                )
+                self.storage_dict[problem_id] = []
+        if finished:
+            # `finished` is a snapshot (the live lists were reset above)
+            self._submit_write(
+                storage.save_to_h5,
+                self.opt_id, self.problem_ids, False, self.objective_names, None,
+                self.constraint_names, self.param_space, finished,
+                self.problem_parameters, self.metadata, self.random_seed,
+                self.file_path, self.logger,
+            )
+
+    def save_surrogate_evals(self, problem_id, epoch, gen_index, x_sm, y_sm):
+        if x_sm.shape[0] > 0:
+            self._submit_write(
+                storage.save_surrogate_evals_to_h5,
+                self.opt_id, problem_id, self.param_names, self.objective_names,
+                epoch, np.asarray(gen_index), np.asarray(x_sm), np.asarray(y_sm),
+                self.file_path, self.logger,
+            )
+
+    def save_optimizer_params(self, problem_id, epoch, optimizer_name, optimizer_params):
+        self._submit_write(
+            storage.save_optimizer_params_to_h5,
+            self.opt_id, problem_id, epoch, optimizer_name, dict(optimizer_params),
+            self.file_path, self.logger,
+        )
+
+    def save_stats(self, problem_id, epoch):
+        # get_stats() runs now (snapshot); only the file write is deferred
+        self._submit_write(
+            storage.save_stats_to_h5,
+            self.opt_id, problem_id, epoch, self.file_path, self.logger,
+            self.get_stats(),
+        )
+
     # ---------------------------------------------------------- epoch loop
 
     def _time_exceeded(self) -> bool:
@@ -281,7 +559,8 @@ class DistOptimizer:
         return task_args, task_reqs
 
     def _fold_round(self, res, round_reqs):
-        """Fold one completed evaluation round into the strategy."""
+        """Fold one completed evaluation round into the strategy and the
+        save queue."""
         if self.reduce_fun is not None:
             res = (
                 self.reduce_fun(res)
@@ -294,10 +573,13 @@ class DistOptimizer:
             c = None
             if self.constraint_names is not None:
                 rres, c = rres[0], rres[1]
-            self.optimizer_dict[problem_id].complete_request(
+            entry = self.optimizer_dict[problem_id].complete_request(
                 eval_req.parameters, np.asarray(rres), pred=eval_req.prediction,
                 epoch=eval_req.epoch, time=t, c=c,
             )
+            if entry is not None:
+                # a quarantined (non-finite) row stays out of the store too
+                self.storage_dict[problem_id].append(entry)
             if self.verbose:
                 prms = list(zip(self.param_names, list(eval_req.parameters.T)))
                 lres = list(zip(self.objective_names, np.asarray(rres).T))
@@ -306,42 +588,189 @@ class DistOptimizer:
                 )
         self.eval_count += 1
 
-    def _process_requests(self):
-        """Drain pending evaluation requests through the evaluator, one
-        blocking batch at a time (the serial pipeline)."""
-        while self.optimizer_dict[0].has_requests() and not self._time_exceeded():
+    def _handle_eval_failure(self, round_index, failure: EvalFailure):
+        """A round exhausted its timeout/retry budget: policy "raise"
+        aborts the run; "skip" drops only this round."""
+        if self.pipeline.on_eval_failure == "raise":
+            raise RuntimeError(
+                f"evaluation round {round_index} failed terminally after "
+                f"{failure.n_attempts} attempt(s) "
+                f"({'timeout' if failure.timed_out else failure.error!r})"
+            ) from failure.error
+        self.logger.warning(
+            f"evaluation round {round_index} skipped after "
+            f"{failure.n_attempts} attempt(s): {failure!r}"
+        )
+
+    def _fold_ready(self, st: _InflightBatch):
+        """Fold every buffered round that has become foldable, strictly
+        in submission order."""
+        while st.next_fold in st.buffered:
+            res = st.buffered.pop(st.next_fold)
+            round_reqs = st.task_reqs[st.next_fold]
+            st.next_fold += 1
+            if isinstance(res, EvalFailure):
+                self._handle_eval_failure(st.next_fold - 1, res)
+                continue
+            self._fold_round(res, round_reqs)
+
+    def _advance_inflight(self, st: _InflightBatch, until):
+        """Block until at least `until` rounds of `st` are folded (or the
+        time limit or handle exhaustion intervenes)."""
+        self._fold_ready(st)
+        while st.next_fold < until and not self._time_exceeded():
+            t0 = time.perf_counter()
+            item = st.handle.poll(timeout=1.0)
+            st.blocked += time.perf_counter() - t0
+            if item is None:
+                if st.handle.done:
+                    break  # exhausted (e.g. cancelled requests)
+                continue
+            index, res = item
+            st.buffered[index] = res
+            self._fold_ready(st)
+
+    def _finish_inflight(self, st: _InflightBatch):
+        """Overlap accounting once a batch is reconciled: of the handle's
+        life (submit to its last result) the driver waited `st.blocked`."""
+        t_end = st.handle.t_landed
+        if t_end is None:
+            t_end = time.perf_counter()
+        wall = t_end - st.handle.t_submit
+        self.pipeline_stats["eval_overlap_s"] += max(wall - st.blocked, 0.0)
+
+    def _abandon_inflight(self):
+        """Soft-stop teardown: fold every result that has already landed
+        (no waiting, no retry started), cancel what never started, drop
+        the rest, and save what was folded."""
+        for st in self._inflight:
+            for index, res in st.handle.drain_completed():
+                st.buffered[index] = res
+            # fold past gaps: a still-running round must not discard
+            # finished later ones; failures are dropped
+            for index in sorted(st.buffered):
+                res = st.buffered.pop(index)
+                if not isinstance(res, EvalFailure):
+                    self._fold_round(res, st.task_reqs[index])
+            st.handle.cancel_pending()
+        self._inflight = []
+        if self.save and self.saved_eval_count < self.eval_count:
+            self.save_evals()
+            self.saved_eval_count = self.eval_count
+
+    def _process_requests(self, allow_quorum: bool = False):
+        """Drain pending evaluation requests through the evaluator.
+
+        Serial mode evaluates each gathered batch in one blocking call.
+        The overlap modes submit it asynchronously and fold results as
+        they stream back, in submission order. With ``allow_quorum`` in
+        speculative mode the drain returns once the quorum fraction of
+        rounds has folded; the stragglers stay in flight behind the
+        surrogate fit and are reconciled at the start of the next drain."""
+        t_drain0 = time.perf_counter()
+        still_inflight = []
+        for st in self._inflight:
+            self._advance_inflight(st, st.total)
+            if st.next_fold < st.total:
+                still_inflight.append(st)  # time limit: teardown salvages it
+            else:
+                self._finish_inflight(st)
+        self._inflight = still_inflight
+
+        strat = self.optimizer_dict[0]
+        while strat.has_requests() and not self._time_exceeded():
             task_args, task_reqs = self._gather_rounds()
             if not task_args:
                 break
-            results = self.evaluator.evaluate_batch(task_args)
-            for res, round_reqs in zip(results, task_reqs):
-                self._fold_round(res, round_reqs)
-        return self.eval_count
+            if self.pipeline.overlaps_io:
+                cfg = self.pipeline
+                handle = self.evaluator.submit_batch(
+                    task_args, timeout=cfg.eval_timeout, retries=cfg.eval_retries,
+                    n_chunks=cfg.torch_eval_chunks,
+                )
+                st = _InflightBatch(handle, task_reqs)
+                quorum = st.total
+                if allow_quorum and cfg.speculative and self.epoch_count > 0:
+                    # never speculate on the initial design: the first
+                    # surrogate fit sees all of it, as in serial mode
+                    quorum = max(1, int(np.ceil(cfg.quorum_fraction * st.total)))
+                self._advance_inflight(st, quorum)
+                if st.next_fold < st.total:
+                    self._inflight.append(st)
+                    if st.next_fold >= quorum:
+                        self.pipeline_stats["quorum_returns"] += 1
+                        self.pipeline_stats["stragglers"] += st.total - st.next_fold
+                else:
+                    self._finish_inflight(st)
+            else:
+                results = self.evaluator.evaluate_batch(task_args)
+                for res, round_reqs in zip(results, task_reqs):
+                    self._fold_round(res, round_reqs)
+
+            if self.save and (self.eval_count - self.saved_eval_count) >= self.save_eval:
+                self.save_evals()
+                self.saved_eval_count = self.eval_count
+            if self._inflight:
+                break  # quorum return: the caller proceeds to the fit
+
+        if self.save and self.saved_eval_count < self.eval_count:
+            self.save_evals()
+            self.saved_eval_count = self.eval_count
+        self.pipeline_stats["eval_wait_s"] += time.perf_counter() - t_drain0
+        return self.eval_count, self.saved_eval_count
 
     def run_epoch(self, completed_epoch: bool = False):
         """One full epoch: drain the pending requests, then run the epoch
-        state machine to completion (reference dmosopt.py:1341-1470)."""
-        epoch = self.epoch_count
+        state machine to completion (reference dmosopt.py:1341-1470).
+        Epochs are labelled from ``start_epoch``, so a resumed run
+        continues the stored labels."""
+        epoch = self.start_epoch + self.epoch_count
         advance_epoch = (self.epoch_count + 1) < self.n_epochs
         strat = self.optimizer_dict[0]
         t0 = time.perf_counter()
-        self._process_requests()
+        wait0 = self.pipeline_stats["eval_wait_s"]
+        self.stats["init_sampling_start"] = time.time()
+        # the epoch-opening drain evaluates the previous epoch's resample
+        # batch: the one place speculative mode may return at quorum
+        self._process_requests(allow_quorum=True)
         strat.initialize_epoch(epoch)
+        self.stats["init_sampling_end"] = time.time()
         done = completed_epoch
         while not done:
             if self._time_exceeded():
                 self.logger.warning("time limit exceeded; stopping epoch")
                 break
             self._process_requests()
-            state, _res, _completed = strat.update_epoch(resample=advance_epoch)
-            done = state == StrategyState.CompletedEpoch
+            state, res, completed_evals = strat.update_epoch(resample=advance_epoch)
+            if state == StrategyState.CompletedEpoch:
+                done = True
+                self._finish_problem_epoch(0, epoch, advance_epoch, res)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
-        self.epoch_stats.append(
-            {"epoch": epoch, "epoch_s": time.perf_counter() - t0, **strat.stats}
-        )
+        self.epoch_stats.append({
+            "epoch": epoch, "epoch_s": time.perf_counter() - t0,
+            "eval_wait_s": self.pipeline_stats["eval_wait_s"] - wait0,
+            **strat.stats,
+        })
+        if self.save:
+            self.save_stats(0, epoch)
+        # every write queued this epoch is in the file before the epoch
+        # counts as done
+        self._flush_writes()
         self.epoch_count += 1
         return self.epoch_count
+
+    def _finish_problem_epoch(self, problem_id, epoch, advance_epoch, res):
+        """Persist the surrogate's evaluations and the optimizer's
+        parameters of a completed epoch that resamples."""
+        if not (self.save and advance_epoch and epoch > 0):
+            return
+        if self.save_surrogate_evals_:
+            self.save_surrogate_evals(problem_id, epoch, res.gen_index, res.x, res.y)
+        if self.save_optimizer_params_:
+            self.save_optimizer_params(
+                problem_id, epoch, res.optimizer.name, res.optimizer.opt_parameters
+            )
 
 
 # -------------------------------------------------------------------- run
@@ -397,10 +826,33 @@ def run(
         dopt_params["device"] = device
     dopt = dopt_init(dopt_params, verbose=verbose, initialize_strategy=True)
     dopt.logger.info(f"Optimizing for {dopt.n_epochs} epochs...")
-    if dopt.n_epochs <= 0:
-        dopt.run_epoch(completed_epoch=True)
-    else:
-        while dopt.epoch_count < dopt.n_epochs and not dopt._time_exceeded():
-            dopt.run_epoch()
-    dopt.print_best()
+    body_ok = False
+    try:
+        if dopt.n_epochs <= 0:
+            dopt.run_epoch(completed_epoch=True)
+        else:
+            while dopt.epoch_count < dopt.n_epochs and not dopt._time_exceeded():
+                dopt.run_epoch()
+        dopt.print_best()
+        body_ok = True
+    finally:
+        # salvage finished in-flight results, drain the evaluator (its
+        # calls may hold files), then land every queued write; each step
+        # isolated so one failure does not strand the others
+        try:
+            dopt._abandon_inflight()
+        except Exception:
+            dopt.logger.exception("discarding in-flight results failed")
+        try:
+            dopt.evaluator.close()
+        except Exception:
+            dopt.logger.exception("evaluator close failed")
+        try:
+            dopt._close_writer()
+        except Exception:
+            # a write failure at close fails a clean run, but must not
+            # displace the exception that ended an aborted one
+            if body_ok:
+                raise
+            dopt.logger.exception("background writer close failed")
     return dopt.get_best(feasible=feasible, return_constraints=return_constraints)

@@ -42,18 +42,24 @@ from dmosopt_tpu_torch.utils.prng import as_torch_generator
 
 
 def get_duplicates(X, Y=None, eps: float = 1e-16) -> np.ndarray:
-    """Mark rows of X that duplicate a row of X (Y=None) or of Y, with
-    reference dmosopt/MOEA.py:426-437 semantics: the upper triangle
-    (including the diagonal) of the distance matrix is masked, so row i is
-    compared only against rows j < i. Exact float64 differences."""
+    """Mark rows of X that duplicate an earlier row of X (Y=None), with
+    reference dmosopt/MOEA.py:426-437 semantics (the upper triangle,
+    diagonal included, is masked), or any row of Y. Exact float64
+    differences.
+
+    With Y the reference, and the JAX package, mask the same triangle,
+    so row i of X meets only rows j < i of Y; a resample candidate that
+    equals a later archived row (a surviving population member, say)
+    would be evaluated again and stored twice. The port compares every
+    pair."""
     from scipy.spatial.distance import cdist
 
     X = np.asarray(X, dtype=np.float64)
     Y = X if Y is None else np.asarray(Y, dtype=np.float64)
     D = cdist(X, Y)
     D[np.isnan(D)] = np.inf
-    iu = np.triu_indices(n=X.shape[0], m=Y.shape[0])
-    D[iu] = np.inf
+    if Y is X:
+        D[np.triu_indices(n=X.shape[0])] = np.inf
     return np.any(D <= eps, axis=1)
 
 

@@ -95,6 +95,11 @@ class MOEA:
     def default_parameters(self) -> Dict[str, Any]:
         return {}
 
+    @property
+    def opt_parameters(self) -> Dict[str, Any]:
+        """The hyperparameters as a plain dict (what the store saves)."""
+        return self.opt_params()
+
     def _tensor(self, a) -> torch.Tensor:
         return torch.as_tensor(np.asarray(a) if not torch.is_tensor(a) else a,
                                dtype=torch.float32, device=self.device)

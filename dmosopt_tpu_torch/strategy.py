@@ -7,9 +7,12 @@ per-epoch MO-ASMO generator, and exposes the `initialize_epoch` /
 `update_epoch` transitions. In surrogate mode the epoch generator
 completes in a single `next()` (the whole inner EA ran on the device);
 in no-surrogate mode the per-generation request/complete cycle matches
-the reference. Termination criteria, the refit controller, features and
-resuming from an archive are not ported; the first raises
-`NotImplementedError`, the driver rejects the others.
+the reference. ``initial=`` restores an archive read from the store
+(a resumed run): the initial design then skips as many points as the
+archive holds and drops any point already in it (`anyclose`; the JAX
+package filters the same way, lazily, before any new row is folded).
+Termination criteria, the refit controller and features are not ported;
+the first raises `NotImplementedError`, the driver rejects the others.
 """
 
 from __future__ import annotations
@@ -34,6 +37,13 @@ from dmosopt_tpu_torch.moasmo import get_duplicates
 from dmosopt_tpu_torch.ops import order_mo
 
 
+def anyclose(x, Y, rtol: float = 1e-4, atol: float = 1e-4) -> bool:
+    """True if any row of Y is elementwise-close to x (the reference's
+    per-row allclose loop, dmosopt/dmosopt.py:36-40, as one comparison)."""
+    x = np.asarray(x)
+    return bool(np.any(np.all(np.abs(Y - x) <= atol + rtol * np.abs(Y), axis=1)))
+
+
 def _vstack_or_init(base, rows):
     """Append rows to a growing archive column (None = first batch)."""
     if rows is None:
@@ -46,7 +56,7 @@ class DistOptStrategy:
         self,
         prob: OptProblem,
         *,
-        n_initial: int = 10,
+        n_initial: int = 10, initial=None,
         initial_method: str = "slh", initial_maxiter: int = 5,
         population_size: int = 100, num_generations: int = 100,
         resample_fraction: float = 0.25,
@@ -81,12 +91,19 @@ class DistOptStrategy:
 
         self.completed = []
         self.x = self.y = self.c = None
+        if initial is not None:
+            # (epochs, x, y, f, c) restored from the store; no features
+            _epochs, self.x, self.y, _f, self.c = initial
 
-        # seed the request queue with the initial design
+        # seed the request queue with the initial design; on resume the
+        # design skips as many points as the archive holds and drops the
+        # points already in it
+        n_previous = None if self.x is None else self.x.shape[0]
         xinit = opt.xinit(
             n_initial, prob.param_names, prob.lb, prob.ub,
             method=initial_method, maxiter=initial_maxiter,
-            local_random=self.local_random, logger=self.logger,
+            nPrevious=n_previous, local_random=self.local_random,
+            logger=self.logger,
         )
         self.reqs = deque()
         if xinit is not None:
@@ -94,7 +111,10 @@ class DistOptStrategy:
                 raise ValueError(
                     f"initial design dim {xinit.shape[1]} != problem dim {prob.dim}"
                 )
-            self.reqs.extend(EvalRequest(row, None, 0) for row in xinit)
+            self.reqs.extend(
+                EvalRequest(row, None, 0) for row in xinit
+                if initial is None or not anyclose(row, self.x)
+            )
         self.opt_gen = None
         self.epoch_index = -1
         self.stats = {}

@@ -54,6 +54,15 @@ def _bounds(mod, lib, dt):
     )
 
 
+@jax.jit
+@jax.value_and_grad
+def _jax_nmll_value_and_grad(p, X, y, tm):
+    """The JAX package's NMLL and its gradient, compiled once per shape
+    (op-by-op dispatch compiles every primitive on first use)."""
+    return JGP._nmll(p, _bounds(JGP, "jax", jnp.float32), X, y, JGP.matern52,
+                     1e-4, tm)
+
+
 @pytest.mark.parametrize("padded", [False, True])
 @pytest.mark.parametrize(
     "u", [(0.0, [0.3], -2.0), (1.5, [-0.7], 0.5), (-1.0, [1.2, -0.4, 0.1], -3.0)]
@@ -69,13 +78,9 @@ def test_nmll_value_and_gradient_match_jax(u, padded):
     jparams = JGP.GPParams(
         jnp.float32(u_amp), jnp.asarray(u_ls, jnp.float32), jnp.float32(u_noise)
     )
-
-    def jloss(p):
-        return JGP._nmll(p, _bounds(JGP, "jax", jnp.float32), jnp.asarray(X),
-                         jnp.asarray(y), JGP.matern52, 1e-4,
-                         None if tm is None else jnp.asarray(tm))
-
-    want, want_g = jax.value_and_grad(jloss)(jparams)
+    want, want_g = _jax_nmll_value_and_grad(
+        jparams, jnp.asarray(X), jnp.asarray(y), None if tm is None else jnp.asarray(tm)
+    )
 
     leaves = [torch.tensor([u_amp]), torch.tensor([u_ls]), torch.tensor([u_noise])]
     for t in leaves:

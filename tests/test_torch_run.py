@@ -122,7 +122,7 @@ def test_run_with_constraints_returns_feasible_points():
 
 @pytest.mark.parametrize(
     "option",
-    [{"save": True, "file_path": "x.h5"}, {"mesh": object()},
+    [{"telemetry": True}, {"mesh": object()},
      {"tenant_batching": True}, {"surrogate_refit": "warm"},
      {"termination_conditions": True}, {"problem_ids": {0, 1}},
      {"jax_objective": True}],
