@@ -1,8 +1,9 @@
 """dmosopt_tpu_torch: the PyTorch/CUDA port of dmosopt_tpu.
 
 A second package beside the JAX one, slice by slice, with the JAX package
-as its reference. It runs MO-ASMO — `run()` with NSGA-II against an
-exact-GP surrogate — on a CUDA device, with the variation kernels as
+as its reference. It runs MO-ASMO — `run()` with NSGA-II or AGE-MOEA
+against an exact-GP surrogate, optionally stopped by the adaptive
+termination criteria — on a CUDA device, with the variation kernels as
 Triton kernels (see `dmosopt_tpu_torch.ops.variation`), host objectives
 on a thread pool under the JAX package's pipeline modes, and the HDF5
 store it saves to and resumes from (`dmosopt_tpu_torch.storage`). It

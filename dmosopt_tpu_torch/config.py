@@ -24,10 +24,12 @@ default_sampling_methods = {
     "lh": "dmosopt_tpu_torch.sampling.lh",
     "mc": "dmosopt_tpu_torch.sampling.mc",
     "glp": "dmosopt_tpu_torch.sampling.glp",
+    "sobol": "dmosopt_tpu_torch.sampling.sobol",
 }
 
 default_optimizers = {
     "nsga2": "dmosopt_tpu_torch.optimizers.nsga2.NSGA2",
+    "age": "dmosopt_tpu_torch.optimizers.agemoea.AGEMOEA",
 }
 
 default_surrogate_methods = {

@@ -170,6 +170,8 @@ EvalEntry = namedtuple(
 
 EvalRequest = namedtuple("EvalRequest", ["parameters", "prediction", "epoch"])
 
+OptHistory = namedtuple("OptHistory", ["n_gen", "n_eval", "x", "y", "c"])
+
 EpochResults = namedtuple(
     "EpochResults", ["best_x", "best_y", "gen_index", "x", "y", "optimizer"]
 )

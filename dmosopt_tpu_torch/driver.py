@@ -12,10 +12,12 @@ to a batched torch objective on the run's device. ``device`` None means
 CUDA; a machine without one raises unless the caller passes
 ``device="cpu"``.
 
-The driver options of the JAX package that this port does not carry
-yet raise `NotImplementedError` instead of being ignored: several
-problems (``problem_ids``), features, dynamic initial sampling,
-termination conditions, custom surrogate training, mean-variance
+``termination_conditions`` (a dict of `create_adaptive_termination`
+options, a callable of the problem, or True) stops each epoch's inner
+EA as the JAX package's does. The driver options of the JAX package
+that this port does not carry yet raise `NotImplementedError` instead
+of being ignored: several problems (``problem_ids``), features, dynamic
+initial sampling, custom surrogate training, mean-variance
 optimization, sensitivity and feasibility methods, ``jax_objective``,
 an external ``evaluator``, meshes, tenant batching, telemetry, and
 surrogate refit modes other than cold. A store written with features
@@ -41,6 +43,7 @@ from dmosopt_tpu_torch.datatypes import (
     StrategyState,
     update_nested_dict,
 )
+from dmosopt_tpu_torch.ops.variation import KERNEL_LAUNCHES
 from dmosopt_tpu_torch.parallel.evaluator import (
     EvalFailure,
     HostFunEvaluator,
@@ -111,7 +114,7 @@ class _InflightBatch:
 # that means "not used"
 _UNPORTED_DEFAULTS = {
     "problem_ids": None, "feature_dtypes": None, "feature_class": None,
-    "dynamic_initial_sampling": None, "termination_conditions": None,
+    "dynamic_initial_sampling": None,
     "surrogate_custom_training": None, "optimize_mean_variance": False,
     "sensitivity_method_name": None, "feasibility_method_name": None,
     "jax_objective": False, "evaluator": None, "mesh": None,
@@ -135,7 +138,7 @@ class DistOptimizer:
         n_epochs=10, population_size=100, num_generations=200,
         resample_fraction=0.25,
         n_initial=10, initial_method="slh", initial_maxiter=5,
-        distance_metric=None, time_limit=None,
+        distance_metric=None, termination_conditions=None, time_limit=None,
         optimizer_name="nsga2", optimizer_kwargs=None,
         surrogate_method_name="gpr", surrogate_method_kwargs=None,
         surrogate_refit=None, telemetry=None,
@@ -192,6 +195,7 @@ class DistOptimizer:
             opt_id=opt_id, verbose=verbose,
             population_size=population_size, num_generations=num_generations,
             distance_metric=distance_metric,
+            termination_conditions=termination_conditions,
             surrogate_method_name=surrogate_method_name,
             local_random=local_random, random_seed=random_seed,
             time_limit=time_limit, n_initial=n_initial,
@@ -278,7 +282,8 @@ class DistOptimizer:
 
         self.epoch_count = self.eval_count = self.saved_eval_count = 0
         self.optimizer_dict, self.storage_dict, self.stats = {}, {}, {}
-        self.epoch_stats = []  # per-epoch wall times and strategy stats
+        # per-epoch wall times, kernel launches and strategy stats
+        self.epoch_stats = []
         # evaluation and persistence accounting: wall the driver spent
         # draining evaluations, the part of async evaluation that ran
         # behind other driver work, quorum returns and their stragglers,
@@ -406,6 +411,7 @@ class DistOptimizer:
             num_generations=self.num_generations,
             resample_fraction=self.resample_fraction,
             distance_metric=self.distance_metric,
+            termination_conditions=self.termination_conditions,
             optimizer_name=self.optimizer_name,
             optimizer_kwargs=self.optimizer_kwargs,
             surrogate_method_name=self.surrogate_method_name,
@@ -729,6 +735,7 @@ class DistOptimizer:
         strat = self.optimizer_dict[0]
         t0 = time.perf_counter()
         wait0 = self.pipeline_stats["eval_wait_s"]
+        launches0 = dict(KERNEL_LAUNCHES)
         self.stats["init_sampling_start"] = time.time()
         # the epoch-opening drain evaluates the previous epoch's resample
         # batch: the one place speculative mode may return at quorum
@@ -750,6 +757,9 @@ class DistOptimizer:
         self.epoch_stats.append({
             "epoch": epoch, "epoch_s": time.perf_counter() - t0,
             "eval_wait_s": self.pipeline_stats["eval_wait_s"] - wait0,
+            "kernel_launches": {
+                k: n - launches0.get(k, 0) for k, n in KERNEL_LAUNCHES.items()
+            },
             **strat.stats,
         })
         if self.save:

@@ -1,6 +1,6 @@
 """State carried across from the JAX package, as plain numpy.
 
-Builds the port's GP fit and NSGA-II state from dicts of numpy arrays,
+Builds the port's GP fit, NSGA-II and AGE-MOEA states from dicts of numpy arrays,
 e.g. ``{k: np.asarray(v) for k, v in fit._asdict().items()}`` of a JAX
 `GPFit` or `NSGA2State`, so the same numbers can go through both
 packages. Only numpy crosses the boundary; nothing here imports JAX.
@@ -12,6 +12,7 @@ import numpy as np
 import torch
 
 from dmosopt_tpu_torch.models.gp import GPFit
+from dmosopt_tpu_torch.optimizers.agemoea import AGEMOEAState
 from dmosopt_tpu_torch.optimizers.nsga2 import NSGA2State
 
 
@@ -42,3 +43,12 @@ def nsga2_state_from_arrays(d: dict, device) -> NSGA2State:
     out["n_active"] = out["n_active"].to(torch.int32)
     out["last_is_crossover"] = out["last_is_crossover"].to(torch.bool)
     return NSGA2State(**out)
+
+
+def agemoea_state_from_arrays(d: dict, device) -> AGEMOEAState:
+    """An `AGEMOEAState` on ``device`` from a dict of the JAX state's
+    fields (the rank and live size become int32)."""
+    out = {k: _tensor(d[k], device) for k in AGEMOEAState.field_names()}
+    out["rank"] = out["rank"].to(torch.int32)
+    out["n_active"] = out["n_active"].to(torch.int32)
+    return AGEMOEAState(**out)

@@ -1,10 +1,9 @@
 """MO-ASMO epoch engine.
 
 Port of ``dmosopt_tpu/moasmo.py`` (`xinit`, `train`, `optimize` with both
-branches, `_optimize_on_device`, `epoch`, `get_best`, `get_duplicates`,
-`remove_duplicates`), after reference `dmosopt/MOASMO.py`: initial design
--> surrogate fit -> inner EA against the surrogate -> crowding-distance
-resample selection.
+branches, `_optimize_on_device` with termination criteria, `epoch`, `get_best`, `get_duplicates`, `remove_duplicates`), after
+reference `dmosopt/MOASMO.py`: initial design -> surrogate fit -> inner
+EA against the surrogate -> crowding-distance resample selection.
 
 When the objective is the surrogate, the inner loop runs on the
 optimizer's device: generate -> surrogate predict -> update, one
@@ -12,14 +11,17 @@ generation after another, with the offspring of every generation kept on
 the device and copied to the host once at the end (the JAX package
 scans the same loop as one XLA program). Only the no-surrogate path
 yields to the caller per generation, because there the host evaluates.
+A termination criterion is checked on the host every
+``termination_check_interval`` generations, as in the JAX package.
 Epochs are still driven through the reference's suspended-generator
-protocol (MOASMO.py:248,422). The JAX engine's termination criteria,
-feasibility and sensitivity models, custom training, mean-variance
-optimization, surrogate refit, meshes and telemetry are not ported.
+protocol (MOASMO.py:248,422). The JAX engine's feasibility and
+sensitivity models, custom training, mean-variance optimization,
+surrogate refit, meshes and telemetry are not ported.
 """
 
 from __future__ import annotations
 
+import itertools
 import time
 from typing import Any, Dict, Optional, Tuple
 
@@ -32,7 +34,7 @@ from dmosopt_tpu_torch.config import (
     default_surrogate_methods,
     resolve,
 )
-from dmosopt_tpu_torch.datatypes import EpochResults
+from dmosopt_tpu_torch.datatypes import EpochResults, OptHistory
 from dmosopt_tpu_torch.models import Model
 from dmosopt_tpu_torch.ops import crowding_distance, sort_mo
 from dmosopt_tpu_torch.utils.prng import as_torch_generator
@@ -42,24 +44,18 @@ from dmosopt_tpu_torch.utils.prng import as_torch_generator
 
 
 def get_duplicates(X, Y=None, eps: float = 1e-16) -> np.ndarray:
-    """Mark rows of X that duplicate an earlier row of X (Y=None), with
-    reference dmosopt/MOEA.py:426-437 semantics (the upper triangle,
-    diagonal included, is masked), or any row of Y. Exact float64
-    differences.
-
-    With Y the reference, and the JAX package, mask the same triangle,
-    so row i of X meets only rows j < i of Y; a resample candidate that
-    equals a later archived row (a surviving population member, say)
-    would be evaluated again and stored twice. The port compares every
-    pair."""
+    """Mark rows of X that duplicate a row of X (Y=None) or of Y, with
+    reference dmosopt/MOEA.py:426-437 semantics, as the JAX package has
+    them: the upper triangle of the (X, Y) distance matrix, diagonal
+    included, is masked, so row i of X meets only rows j < i of Y.
+    Exact float64 differences."""
     from scipy.spatial.distance import cdist
 
     X = np.asarray(X, dtype=np.float64)
     Y = X if Y is None else np.asarray(Y, dtype=np.float64)
     D = cdist(X, Y)
     D[np.isnan(D)] = np.inf
-    if Y is X:
-        D[np.triu_indices(n=X.shape[0])] = np.inf
+    D[np.triu_indices(n=X.shape[0], m=Y.shape[0])] = np.inf
     return np.any(D <= eps, axis=1)
 
 
@@ -100,19 +96,46 @@ def _surrogate_eval_fn(mdl: Model):
     return eval_fn
 
 
+def offspring_per_generation(optimizer) -> int:
+    """Offspring batch size of one generation (reference
+    ``dmosopt_tpu/moasmo.py:216``). The JAX package reads it off the
+    traced shape of a generation; the port's optimizers state it
+    (`MOEA.n_offspring`)."""
+    return max(1, int(optimizer.n_offspring()))
+
+
 def _optimize_on_device(
     optimizer,
     eval_fn,
     num_generations: int,
     generator: torch.Generator,
+    termination=None,
     termination_check_interval: int = 10,
     logger=None,
+    stats: Optional[Dict[str, Any]] = None,
 ):
     """The inner EA loop on the optimizer's device (reference
-    `_optimize_on_device`, moasmo.py:288, one `lax.scan`). Offspring stay
-    on the device until the loop ends. With adaptive population size the
-    loop pauses every ``termination_check_interval`` generations so the
-    host can grow the capacity, as the reference's chunked scan does.
+    `_optimize_on_device`, ``dmosopt_tpu/moasmo.py:288``, scanned XLA
+    programs). Offspring stay on the device until the loop ends.
+
+    Without a criterion and a fixed population the loop runs
+    ``num_generations`` generations back to back. With a termination
+    criterion, the criterion is the sole stopping rule (the reference
+    switches to itertools.count, MOASMO.py:91-93): the host checks it
+    every ``termination_check_interval`` generations, handing it a host
+    copy of the population. An evaluation budget (`eval_budget()`) caps
+    each chunk at the whole generations that fit under it. Under a plain
+    `MaximumGenerationTermination` the loop stops at the first check
+    past the cap, so it runs ``I * (n_max_gen // I + 1)`` generations,
+    as the JAX package's fused scan does. An adaptive population size
+    also pauses every interval, so the host can grow the capacity.
+
+    ``stats``, when given, receives the generations run
+    (``n_generations``), the criterion's ``stop_reasons``, the number of
+    checks, the wall seconds spent in them (``termination_s``) and the
+    part of it spent copying the population to the host, which waits
+    for the device to finish the queued generations
+    (``termination_wait_s``).
 
     Returns (x_new, y_new, gen_counts): the evaluated offspring flattened
     to (N, cols) numpy plus the per-generation offspring counts."""
@@ -120,12 +143,11 @@ def _optimize_on_device(
     lb, ub = bounds[:, 0], bounds[:, 1]
     adaptive = optimizer.adaptive_population_size
     xs, ys, counts = [], [], []
-    gen = 0
-    while gen < num_generations:
-        n = num_generations - gen
-        if adaptive:
-            n = min(n, termination_check_interval)
+
+    def run_chunk(n):
+        """n generations; returns the offspring they evaluated."""
         state = optimizer.state
+        first = len(counts)
         for _ in range(n):
             x_gen, state = optimizer.generate_strategy(generator, state)
             x_gen = torch.clamp(x_gen, lb, ub)
@@ -135,16 +157,80 @@ def _optimize_on_device(
             ys.append(y_gen)
             counts.append(x_gen.shape[0])
         optimizer.state = state
-        gen += n
-        if adaptive and optimizer.maybe_grow_capacity() and logger is not None:
-            logger.info(
-                f"{optimizer.name}: population capacity grown to "
-                f"{optimizer.capacity}"
-            )
+        return sum(counts[first:])
+
+    gen = n_eval = n_checks = 0
+    check_s = wait_s = 0.0
+    if termination is None and not adaptive:
+        run_chunk(num_generations)
+        gen = num_generations
+    else:
+        noff = offspring_per_generation(optimizer)
+        eval_budget = None
+        if termination is not None:
+            eval_budget = getattr(termination, "eval_budget", lambda: None)()
+
+        def terminated():
+            nonlocal n_checks, check_s, wait_s
+            if termination is None:
+                return gen >= num_generations
+            t0 = time.perf_counter()
+            pop_x, pop_y = optimizer.get_population_strategy(optimizer.state)
+            opt = OptHistory(gen, n_eval, _to_np(pop_x), _to_np(pop_y), None)
+            t1 = time.perf_counter()
+            done = termination.has_terminated(opt)
+            n_checks += 1
+            check_s += time.perf_counter() - t0
+            wait_s += t1 - t0
+            return done
+
+        while not terminated():
+            n = termination_check_interval
+            if termination is None:
+                n = min(n, num_generations - gen)
+            if eval_budget is not None:
+                # the budget is a hard cap: run only whole generations
+                # that fit under it; when none fits, stop short of it
+                n = min(n, (eval_budget - n_eval) // noff)
+                if n <= 0:
+                    # no evaluation will reach the cap, so the criterion
+                    # cannot trip on its own: attribute the stop to it
+                    from dmosopt_tpu_torch.termination import mark_eval_budget_stop
+
+                    mark_eval_budget_stop(termination)
+                    if logger is not None:
+                        logger.info(
+                            f"{optimizer.name}: evaluation budget "
+                            f"({eval_budget}) leaves no room for a full "
+                            f"generation of {noff}; stopping at {n_eval}"
+                        )
+                    break
+            n_eval += run_chunk(n)
+            gen += n
+            if adaptive and optimizer.maybe_grow_capacity():
+                noff = offspring_per_generation(optimizer)
+                if logger is not None:
+                    logger.info(
+                        f"{optimizer.name}: population capacity grown to "
+                        f"{optimizer.capacity}"
+                    )
+    reasons = getattr(termination, "stop_reasons", lambda: [])()
+    if termination is not None and logger is not None:
+        logger.info(
+            f"{optimizer.name}: stopped at generation {gen}"
+            + (f" ({'+'.join(reasons)})" if reasons else "")
+        )
+    if stats is not None:
+        stats.update(
+            n_generations=gen, stop_reasons=list(reasons),
+            termination_checks=n_checks, termination_s=check_s,
+            termination_wait_s=wait_s,
+        )
     if not xs:
+        n_obj_cols = int(eval_fn(bounds[:, 0][None, :]).shape[1])
         return (
             np.zeros((0, optimizer.nInput), np.float32),
-            np.zeros((0, optimizer.nOutput), np.float32),
+            np.zeros((0, n_obj_cols), np.float32),
             np.zeros((0,), np.int64),
         )
     return (
@@ -169,6 +255,7 @@ def optimize(
     local_random=None,
     logger=None,
     optimize_mean_variance: bool = False,
+    stats: Optional[Dict[str, Any]] = None,
     **kwargs,
 ):
     """Inner multi-objective optimization against the (surrogate) model,
@@ -176,13 +263,15 @@ def optimize(
     when `model.objective is None` each generation's candidates are
     yielded and the caller sends back real evaluations; otherwise the loop
     runs on the device and the `EpochResults` arrive via StopIteration.
+    A ``termination`` criterion, when given, is the sole stopping rule on
+    both branches (`_optimize_on_device`; per generation on the
+    real-objective branch, reference ``dmosopt_tpu/moasmo.py:685-700``);
+    ``stats`` receives the surrogate branch's loop statistics.
 
     The numpy stream of ``local_random`` is consumed in the reference's
     order: loop generator, initial design, optimizer state."""
-    if termination is not None or optimize_mean_variance:
-        raise NotImplementedError(
-            "termination criteria and optimize_mean_variance are not ported"
-        )
+    if optimize_mean_variance:
+        raise NotImplementedError("optimize_mean_variance is not ported")
     generator = as_torch_generator(local_random, optimizer.device)
     bounds = np.column_stack((np.asarray(xlb), np.asarray(xub)))
 
@@ -214,8 +303,9 @@ def optimize(
     if model.objective is not None:
         x_dev, y_dev, gen_counts = _optimize_on_device(
             optimizer, eval_fn, num_generations, generator,
+            termination=termination,
             termination_check_interval=termination_check_interval,
-            logger=logger,
+            logger=logger, stats=stats,
         )
         x_new, y_new = [x_dev], [y_dev]
         gen_indexes.extend(
@@ -223,7 +313,18 @@ def optimize(
             for i, c in enumerate(gen_counts)
         )
     else:
-        for i in range(1, num_generations + 1):
+        it = (
+            itertools.count(1)
+            if termination is not None
+            else range(1, num_generations + 1)
+        )
+        n_eval = 0
+        for i in it:
+            if termination is not None:
+                pop_x, pop_y = optimizer.population_objectives
+                opt = OptHistory(i, n_eval, _to_np(pop_x), _to_np(pop_y), None)
+                if termination.has_terminated(opt):
+                    break
             if logger is not None:
                 logger.info(
                     f"{optimizer.name}: generation {i} of {num_generations}..."
@@ -235,6 +336,7 @@ def optimize(
             y_gen = yield x_gen
             y_gen = np.asarray(y_gen, dtype=np.float32)
             optimizer.update(x_gen_dev, y_gen, state_gen)
+            n_eval += x_gen.shape[0]
             x_new.append(x_gen)
             y_new.append(y_gen)
             gen_indexes.append(np.full((x_gen.shape[0],), i, dtype=np.uint32))
@@ -362,6 +464,7 @@ def epoch(
     optimizer_kwargs: Optional[Dict[str, Any]] = None,
     surrogate_method_name="gpr",
     surrogate_method_kwargs: Optional[Dict[str, Any]] = None,
+    termination=None,
     local_random=None,
     logger=None,
     device=None,
@@ -377,8 +480,10 @@ def epoch(
     wall seconds of the surrogate fit (``train_s``, the device
     synchronized), the fit's summary (``objective``) and the wall
     seconds of the inner EA (``optimize_s``, over ``n_generations``
-    generations). The JAX engine's feasibility, sensitivity,
-    custom-training, refit, mean-variance and termination options are
+    generations) and, with a ``termination`` criterion, the reasons it
+    gave (``stop_reasons``), its checks and the wall seconds spent in
+    them (`_optimize_on_device`). The JAX engine's feasibility,
+    sensitivity, custom-training, refit and mean-variance options are
     not ported.
     """
     nInput = len(param_names)
@@ -431,7 +536,8 @@ def epoch(
     opt_gen = optimize(
         num_generations, optimizer, mdl, nInput, nOutput, xlb, xub,
         initial=(x_0, y_0), popsize=pop, local_random=local_random,
-        logger=logger, **optimizer_kwargs_,
+        termination=termination, logger=logger, stats=stats,
+        **optimizer_kwargs_,
     )
     try:
         x_gen = next(opt_gen)
@@ -449,6 +555,8 @@ def epoch(
                 break
     stats["optimize_s"] = time.perf_counter() - t_opt0 - t_suspended
     stats["n_generations"] = int(res.gen_index.max()) if len(res.gen_index) else 0
+    if termination is not None:
+        stats["stop_reasons"] = list(termination.stop_reasons())
 
     best_x, best_y = res.best_x, res.best_y
     gen_index, x, y = res.gen_index, res.x, res.y

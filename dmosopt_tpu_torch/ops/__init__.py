@@ -6,6 +6,7 @@ from dmosopt_tpu_torch.ops.dominance import (  # noqa: F401
 )
 from dmosopt_tpu_torch.ops.distances import (  # noqa: F401
     crowding_distance,
+    duplicate_mask,
     euclidean_distance_metric,
 )
 from dmosopt_tpu_torch.ops.sort import (  # noqa: F401

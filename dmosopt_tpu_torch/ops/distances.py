@@ -1,9 +1,11 @@
-"""Diversity metrics: crowding distance and the euclidean metric.
+"""Diversity metrics and duplicate detection: crowding distance, the
+euclidean metric and the duplicate-row mask.
 
 Port of ``dmosopt_tpu/ops/distances.py`` (`crowding_distance` :26,
-`euclidean_distance_metric` :70). The pairwise/duplicate kernels of that
-module are not on this slice's path; host-side duplicate detection uses
-`moasmo.get_duplicates` (float64 numpy), as the reference does.
+`euclidean_distance_metric` :70, `duplicate_mask` :175). The pairwise
+distance kernels of that module are not on the port's path; host-side
+duplicate detection uses `moasmo.get_duplicates` (float64 numpy), as
+the reference does.
 
 The per-objective order is a STABLE sort, as `jnp.argsort` is, so tied
 objective values get the same neighbours in both packages. The
@@ -77,3 +79,53 @@ def euclidean_distance_metric(Y: torch.Tensor, mask=None) -> torch.Tensor:
     U = (Y - lb) / span
     out = torch.sqrt(torch.sum(U**2, dim=1))
     return torch.where(valid, out, torch.zeros_like(out))
+
+
+def _default_row_chunk(n: int) -> int:
+    """Row-block size of the chunked duplicate mask: the whole array up
+    to 1024 rows (one block is the dense form), 1024 beyond."""
+    return n if n <= 1024 else 1024
+
+
+def _duplicate_mask_dense(X, eps, mask):
+    n = X.shape[0]
+    D = torch.sqrt(torch.sum((X[:, None, :] - X[None, :, :]) ** 2, dim=-1))
+    iu = torch.ones((n, n), dtype=torch.bool, device=X.device).triu(1)  # j > i
+    near = iu & ~torch.isnan(D) & (D <= eps)
+    if mask is not None:
+        valid = mask.to(torch.bool)
+        near = near & valid[:, None] & valid[None, :]
+    return near.any(dim=0)
+
+
+def _duplicate_mask_chunked(X, eps, mask, chunk: int):
+    n = X.shape[0]
+    valid = (torch.ones(n, dtype=torch.bool, device=X.device) if mask is None
+             else mask.to(torch.bool))
+    col = torch.arange(n, device=X.device)
+    dup = torch.zeros(n, dtype=torch.bool, device=X.device)
+    for i0 in range(0, n, chunk):
+        Xi = X[i0:i0 + chunk]
+        # exact differences (not the matmul identity), so identical rows
+        # are exactly 0 apart; (chunk, n) live, never (n, n, f)
+        D = torch.sqrt(torch.sum((Xi[:, None, :] - X[None, :, :]) ** 2, dim=-1))
+        gi = col[i0:i0 + chunk]
+        near = (gi[:, None] < col[None, :]) & ~torch.isnan(D) & (D <= eps)
+        near = near & valid[i0:i0 + chunk, None] & valid[None, :]
+        dup = dup | near.any(dim=0)
+    return dup
+
+
+def duplicate_mask(X: torch.Tensor, eps: float = 1e-16, mask=None,
+                   chunk=None) -> torch.Tensor:
+    """Mark rows that duplicate an earlier row (within ``eps`` euclidean
+    distance), as reference dmosopt/MOEA.py:426-436 does: only the upper
+    triangle (j > i) marks j as a duplicate of i, NaN distances are
+    ignored, and rows with ``mask`` False neither mark nor are marked.
+    Up to one chunk (1024 rows by default) the mask is one dense
+    comparison; larger inputs stream row blocks so (n, n, f) never
+    exists."""
+    B = int(chunk) if chunk is not None else _default_row_chunk(X.shape[0])
+    if B >= X.shape[0]:
+        return _duplicate_mask_dense(X, eps, mask)
+    return _duplicate_mask_chunked(X, eps, mask, B)

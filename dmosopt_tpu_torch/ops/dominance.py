@@ -51,11 +51,15 @@ def dominance_matrix(Y: torch.Tensor, mask=None) -> torch.Tensor:
     return dom
 
 
-def non_dominated_rank(Y: torch.Tensor, mask=None) -> torch.Tensor:
+def non_dominated_rank(Y: torch.Tensor, mask=None, stop_count=None) -> torch.Tensor:
     """Rank points into non-dominated fronts (0 = best).
 
     Y: (n, d) objective matrix (minimization).
     mask: optional (n,) bool; invalid rows get rank ``n`` and never dominate.
+    stop_count: the reference's contract (``dmosopt_tpu/ops/dominance.py``
+        :279-285) asks only that the fronts covering the best
+        ``stop_count`` points be exact; the ranks here are exact
+        everywhere, a legal refinement, so it is accepted and not used.
     Returns (n,) int32 ranks.
     """
     n = Y.shape[0]

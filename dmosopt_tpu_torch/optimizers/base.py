@@ -95,6 +95,12 @@ class MOEA:
     def default_parameters(self) -> Dict[str, Any]:
         return {}
 
+    def n_offspring(self) -> int:
+        """Offspring emitted per generation: ``capacity // 2`` pair slots
+        of two children each (the fixed-batch scheme of NSGA-II and
+        AGE-MOEA)."""
+        return 2 * (self.capacity // 2)
+
     @property
     def opt_parameters(self) -> Dict[str, Any]:
         """The hyperparameters as a plain dict (what the store saves)."""

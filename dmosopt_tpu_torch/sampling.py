@@ -1,5 +1,5 @@
-"""Design-of-experiments samplers: MC, Latin hypercube, symmetric LH, good
-lattice points, with optional RGS de-correlation.
+"""Design-of-experiments samplers: MC, Latin hypercube, symmetric LH, Sobol,
+good lattice points, with optional RGS de-correlation.
 
 Port of ``dmosopt_tpu/sampling.py`` for the samplers the port carries.
 Every sampler maps ``(n, s, random, maxiter) -> (n, s)`` points in the
@@ -10,11 +10,17 @@ from a CPU `torch.Generator` seeded like the reference's `as_key` (one
 draw from a numpy Generator), so they consume the caller's numpy stream
 in the same order as the reference, though their own numbers differ.
 GLP scores its candidate lattices by centered L2 discrepancy in float64
-(see `_score_and_pick`). Sobol is not ported yet.
+(see `_score_and_pick`). The scrambled Sobol design is scipy's
+`qmc.Sobol` seeded with the caller's numpy Generator, as in the JAX
+package, so it is that package's design bit for bit. `sobol_block` is
+the digitally shifted Sobol block on a device (the hypervolume FPRAS
+draws from it); its shift bits are an argument, drawn by
+`sobol_shift`.
 """
 
 from __future__ import annotations
 
+import functools
 import itertools
 import math
 
@@ -55,6 +61,95 @@ def SymmetricLatinHypercubeDesign(n: int, s: int, random=None) -> np.ndarray:
         p[:k, j] = np.where(flip, pj, n - 1 - pj)
         p[n - 1 : n - 1 - k : -1, j] = np.where(flip, n - 1 - pj, pj)
     return (p + 0.5) / n
+
+
+def SobolDesign(n: int, s: int, random=None) -> np.ndarray:
+    """Scrambled Sobol sequence, generated in power-of-two blocks and
+    truncated (reference: dmosopt/sampling.py:11-22)."""
+    from scipy.stats import qmc
+
+    rng = as_generator(random)
+    sampler = qmc.Sobol(d=s, scramble=True, seed=rng)
+    m = max(1, math.ceil(math.log2(max(n, 2))))
+    sample = sampler.random_base2(m)
+    return np.asarray(sample[:n])
+
+
+# ------------------------------------------------------ Sobol on a device
+
+SOBOL_BITS = 30  # scipy's direction numbers are 30-bit fractions
+
+
+@functools.lru_cache(maxsize=64)
+def sobol_direction_numbers(dim: int) -> np.ndarray:
+    """Joe-Kuo direction numbers for a `dim`-dimensional Sobol sequence,
+    (dim, bits) uint32, read from scipy once per dimension so the points
+    can be generated on a device (`sobol_block` reads the bit width off
+    the table's shape). The returned array is read-only."""
+    from scipy.stats import qmc
+
+    sampler = qmc.Sobol(d=dim, scramble=False)
+    sv = getattr(sampler, "_sv", None)  # private scipy internals
+    if sv is None or np.ndim(sv) != 2 or np.shape(sv)[0] != dim:
+        raise RuntimeError(
+            "cannot extract Sobol direction numbers from scipy.stats.qmc."
+            "Sobol._sv (scipy internals changed?); pin scipy or supply a "
+            "direction-number table to sobol_block directly"
+        )
+    out = np.asarray(sv, dtype=np.uint32)
+    out.setflags(write=False)
+    return out
+
+
+_MASK32 = 0xFFFFFFFF
+
+
+def sobol_shift(dim: int, generator: torch.Generator, device=None) -> torch.Tensor:
+    """(dim,) random 32-bit words for `sobol_block`'s digital shift, as
+    int64, drawn from ``generator`` (on ``device``, the generator's own
+    by default)."""
+    device = generator.device if device is None else device
+    return torch.randint(
+        0, 2**32, (dim,), generator=generator, dtype=torch.int64, device=device
+    )
+
+
+def sobol_block(sv, shift: torch.Tensor, n: int) -> torch.Tensor:
+    """First ``n`` Sobol points with a digital shift, on ``shift``'s
+    device (reference ``dmosopt_tpu/sampling.py:131``).
+
+    ``sv`` is the (dim, bits) direction-number table of
+    `sobol_direction_numbers`; ``shift`` holds (dim,) random 32-bit words
+    (`sobol_shift`), of which the top ``bits`` are XORed into every
+    point, a randomized-QMC digital shift. Point k is the XOR of the
+    direction numbers picked by the set bits of gray(k) = k ^ (k >> 1).
+    The words are int64 masked to 32 bits, because torch's uint32 lacks
+    bitwise and shift kernels on some backends; the XOR-reduce halves
+    the bit axis as the JAX package's does. The result is truncated to
+    float32's 24-bit mantissa before the cast, so no point rounds up to
+    1.0. Returns (n, dim) float32 in [0, 1)."""
+    dev = shift.device
+    sv = torch.as_tensor(np.asarray(sv, dtype=np.int64), device=dev)
+    dim, bits = sv.shape
+    idx = torch.arange(n, dtype=torch.int64, device=dev)
+    gray = idx ^ (idx >> 1)
+    bit = (gray[:, None] >> torch.arange(bits, device=dev)[None, :]) & 1
+    # (n, dim, bits): the direction number where the gray bit is set
+    x = torch.where(bit[:, None, :].bool(), sv[None, :, :], torch.zeros_like(sv[None]))
+    width = 1
+    while width < bits:
+        width *= 2
+    if width != bits:  # pad with zeros, XOR's identity
+        x = torch.nn.functional.pad(x, (0, width - bits))
+    while x.shape[-1] > 1:
+        h = x.shape[-1] // 2
+        x = x[..., :h] ^ x[..., h:]
+    x = x[..., 0] & _MASK32
+    x = x ^ ((shift.to(torch.int64) & _MASK32) >> (32 - bits))[None, :]
+    if bits > 24:
+        x = x >> (bits - 24)
+        bits = 24
+    return x.to(torch.float32) * (2.0**-bits)
 
 
 # ------------------------------------------------------------------- GLP
@@ -211,3 +306,7 @@ def slh(n, s, random=None, maxiter=0):
 
 def glp(n, s, random=None, maxiter=0):
     return _with_decorr(GoodLatticePointsDesign(n, s, random), maxiter)
+
+
+def sobol(n, s, random=None, maxiter=0):
+    return SobolDesign(n, s, random)

@@ -11,8 +11,10 @@ the reference. ``initial=`` restores an archive read from the store
 (a resumed run): the initial design then skips as many points as the
 archive holds and drops any point already in it (`anyclose`; the JAX
 package filters the same way, lazily, before any new row is folded).
-Termination criteria, the refit controller and features are not ported;
-the first raises `NotImplementedError`, the driver rejects the others.
+``termination_conditions`` builds the epoch's stopping criterion as
+the JAX package does (`_build_termination`); one criterion object
+serves every epoch of the run, so its windows carry across epochs. The
+refit controller and features are not ported; the driver rejects them.
 """
 
 from __future__ import annotations
@@ -67,8 +69,6 @@ class DistOptStrategy:
         surrogate_method_kwargs: Optional[Dict] = None,
         local_random=None, logger=None, device=None,
     ):
-        if termination_conditions:
-            raise NotImplementedError("termination_conditions are not ported")
         self.__dict__.update(
             prob=prob,
             local_random=local_random,
@@ -88,6 +88,7 @@ class DistOptStrategy:
             else {"crossover_prob": 0.9, "mutation_prob": 0.1}
         )
         self.optimizer_iter = itertools.cycle(range(len(self.optimizer_name)))
+        self.termination = self._build_termination(termination_conditions)
 
         self.completed = []
         self.x = self.y = self.c = None
@@ -119,6 +120,22 @@ class DistOptStrategy:
         self.epoch_index = -1
         self.stats = {}
         self.n_quarantined = 0
+
+    def _build_termination(self, conditions):
+        """None/falsy -> no criterion; a callable -> called with the
+        problem; a dict/True -> the adaptive composite with overrides
+        (reference ``dmosopt_tpu/strategy.py:188-200``), whose
+        hypervolume estimators run on the run's device."""
+        if not conditions:
+            return None
+        if callable(conditions):
+            return conditions(self.prob)
+        from dmosopt_tpu_torch.adaptive_termination import create_adaptive_termination
+
+        overrides = conditions if isinstance(conditions, dict) else {}
+        spec = dict(strategy="comprehensive", n_max_gen=self.num_generations)
+        spec.update(overrides)
+        return create_adaptive_termination(self.prob, device=self.device, **spec)
 
     # ------------------------------------------------------- request queue
 
@@ -232,6 +249,7 @@ class DistOptStrategy:
             optimizer_name=name, optimizer_kwargs=okw,
             surrogate_method_name=self.surrogate_method_name,
             surrogate_method_kwargs=self.surrogate_method_kwargs,
+            termination=self.termination,
             local_random=self.local_random, logger=self.logger,
             device=self.device,
         )

@@ -1,4 +1,9 @@
-"""The port's GLP design, and `xinit`'s default, against the JAX package.
+"""The port's GLP and Sobol designs, and `xinit`'s default, against the
+JAX package.
+
+Sobol: the scrambled design is scipy's with the same numpy Generator,
+and `sobol_block` gets the shift bits the JAX package drew from its key,
+so both must be bit-for-bit the JAX package's.
 
 GLP builds candidate lattices with numpy (the port's copy of the
 reference's code) and keeps the one of least centered L2 discrepancy.
@@ -88,3 +93,33 @@ def test_xinit_defaults_to_the_jax_packages_glp_design(n_eval, n_in, monkeypatch
     got = TM.xinit(n_eval, names, xlb, xub, local_random=np.random.default_rng(3))
     np.testing.assert_array_equal(got, want)
     assert got.shape == (n_eval * n_in, n_in)
+
+
+@pytest.mark.parametrize("n, s", [(50, 4), (100, 15)])
+def test_sobol_design_is_bit_for_bit_the_jax_packages(n, s):
+    want = JS.sobol(n, s, np.random.default_rng(3))
+    np.testing.assert_array_equal(TS.sobol(n, s, np.random.default_rng(3)), want)
+    # the registry shorthand reaches it through xinit
+    names = [f"x{i}" for i in range(s)]
+    lb, ub = np.zeros(s), np.full(s, 2.0)
+    np.testing.assert_array_equal(
+        TM.xinit(4, names, lb, ub, method="sobol", local_random=np.random.default_rng(5)),
+        JM.xinit(4, names, lb, ub, method="sobol", local_random=np.random.default_rng(5)),
+    )
+
+
+@pytest.mark.parametrize("dim, n", [(1, 7), (6, 300)])
+def test_sobol_block_with_the_jax_shift_bits_is_bit_for_bit(dim, n):
+    import jax
+    import jax.numpy as jnp
+
+    sv = JS.sobol_direction_numbers(dim)
+    np.testing.assert_array_equal(TS.sobol_direction_numbers(dim), sv)
+    key = jax.random.PRNGKey(dim)
+    want = np.asarray(JS.sobol_block(jnp.asarray(sv), key, n))
+    bits = np.asarray(jax.random.bits(key, (dim,), jnp.uint32)).astype(np.int64)
+    got = TS.sobol_block(sv, torch.as_tensor(bits), n).numpy()
+    np.testing.assert_array_equal(got, want)
+    assert got.dtype == np.float32 and 0.0 <= got.min() and got.max() < 1.0
+    shift = TS.sobol_shift(dim, torch.Generator().manual_seed(0))
+    assert shift.dtype == torch.int64 and bool(((shift >= 0) & (shift < 2**32)).all())
