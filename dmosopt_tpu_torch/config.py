@@ -30,6 +30,9 @@ default_sampling_methods = {
 default_optimizers = {
     "nsga2": "dmosopt_tpu_torch.optimizers.nsga2.NSGA2",
     "age": "dmosopt_tpu_torch.optimizers.agemoea.AGEMOEA",
+    "smpso": "dmosopt_tpu_torch.optimizers.smpso.SMPSO",
+    "cmaes": "dmosopt_tpu_torch.optimizers.cmaes.CMAES",
+    "trs": "dmosopt_tpu_torch.optimizers.trs.TRS",
 }
 
 default_surrogate_methods = {

@@ -27,7 +27,6 @@ from typing import Optional, Tuple
 
 import numpy as np
 import torch
-from scipy.stats import t as _student_t
 
 from dmosopt_tpu_torch import sampling
 from dmosopt_tpu_torch.utils.device import resolve_device
@@ -273,6 +272,8 @@ def hypervolume_fpras(
     default) on ``device``. Returns the estimate, plus
     ``(ci, n_samples)`` when ``return_info``.
     """
+    from scipy.stats import t as student_t  # here: scipy.stats loads slowly
+
     points = np.asarray(points, dtype=np.float64)
     ref = np.asarray(ref_point, dtype=np.float64)
     if points.ndim != 2 or points.shape[0] == 0:
@@ -329,7 +330,7 @@ def hypervolume_fpras(
             if len(bm) >= 2:
                 # small-sample t quantile: at 8 batches 1.96 would
                 # under-cover by ~17%
-                q = float(_student_t.ppf(0.975, len(bm) - 1))
+                q = float(student_t.ppf(0.975, len(bm) - 1))
                 se = q / 1.96 * bm.std(ddof=1) / np.sqrt(len(bm))
             else:
                 se = np.inf

@@ -1,6 +1,7 @@
 """State carried across from the JAX package, as plain numpy.
 
-Builds the port's GP fit, NSGA-II and AGE-MOEA states from dicts of numpy arrays,
+Builds the port's GP fit, NSGA-II, AGE-MOEA, MO-CMA-ES, SMPSO and TRS
+states from dicts of numpy arrays,
 e.g. ``{k: np.asarray(v) for k, v in fit._asdict().items()}`` of a JAX
 `GPFit` or `NSGA2State`, so the same numbers can go through both
 packages. Only numpy crosses the boundary; nothing here imports JAX.
@@ -13,7 +14,10 @@ import torch
 
 from dmosopt_tpu_torch.models.gp import GPFit
 from dmosopt_tpu_torch.optimizers.agemoea import AGEMOEAState
+from dmosopt_tpu_torch.optimizers.cmaes import CMAESState
 from dmosopt_tpu_torch.optimizers.nsga2 import NSGA2State
+from dmosopt_tpu_torch.optimizers.smpso import SMPSOState
+from dmosopt_tpu_torch.optimizers.trs import TRSState
 
 
 def _tensor(v, device):
@@ -52,3 +56,38 @@ def agemoea_state_from_arrays(d: dict, device) -> AGEMOEAState:
     out["rank"] = out["rank"].to(torch.int32)
     out["n_active"] = out["n_active"].to(torch.int32)
     return AGEMOEAState(**out)
+
+
+def cmaes_state_from_arrays(d: dict, device) -> CMAESState:
+    """A `CMAESState` on ``device`` from a dict of the JAX state's fields
+    (the rank becomes int32, the offspring's parent indices int64)."""
+    out = {k: _tensor(d[k], device) for k in CMAESState.field_names()}
+    out["rank"] = out["rank"].to(torch.int32)
+    out["gen_pidx"] = out["gen_pidx"].to(torch.int64)
+    return CMAESState(**out)
+
+
+def smpso_state_from_arrays(d: dict, device) -> SMPSOState:
+    """An `SMPSOState` on ``device`` from a dict of the JAX state's
+    fields. The JAX state has no velocity draws (it derives them from a
+    key folded from the state); ``draws`` (S, 5) and ``leaders`` (S, 2)
+    are taken from the dict when present, else zeros."""
+    S = np.shape(d["population_parm"])[0]
+    d = {"draws": np.zeros((S, 5), np.float32),
+         "leaders": np.zeros((S, 2), np.int64), **d}
+    out = {k: _tensor(d[k], device) for k in SMPSOState.field_names()}
+    out["rank"] = out["rank"].to(torch.int32)
+    out["leaders"] = out["leaders"].to(torch.int64)
+    return SMPSOState(**out)
+
+
+def trs_state_from_arrays(d: dict, device) -> TRSState:
+    """A `TRSState` on ``device`` from a dict of the JAX state's fields
+    (the rank and ring counters become int32, the restart flag bool, the
+    uint32 Sobol direction numbers int64)."""
+    d = dict(d, sobol_sv=np.asarray(d["sobol_sv"]).astype(np.int64))
+    out = {k: _tensor(d[k], device) for k in TRSState.field_names()}
+    for k in ("rank", "succ_count", "succ_ptr"):
+        out[k] = out[k].to(torch.int32)
+    out["restart"] = out["restart"].to(torch.bool)
+    return TRSState(**out)

@@ -43,25 +43,45 @@ from dmosopt_tpu_torch.utils.prng import as_torch_generator
 # ------------------------------------------------------------------ helpers
 
 
-def get_duplicates(X, Y=None, eps: float = 1e-16) -> np.ndarray:
+def get_duplicates(X, Y=None, eps: float = 1e-16, block=None,
+                   device="cpu") -> np.ndarray:
     """Mark rows of X that duplicate a row of X (Y=None) or of Y, with
     reference dmosopt/MOEA.py:426-437 semantics, as the JAX package has
-    them: the upper triangle of the (X, Y) distance matrix, diagonal
-    included, is masked, so row i of X meets only rows j < i of Y.
-    Exact float64 differences."""
-    from scipy.spatial.distance import cdist
+    them (``dmosopt_tpu/moasmo.py:56-72``): the upper triangle of the
+    (X, Y) distance matrix, diagonal included, is masked, so row i of X
+    meets only rows j < i of Y; NaN distances never match.
 
-    X = np.asarray(X, dtype=np.float64)
-    Y = X if Y is None else np.asarray(Y, dtype=np.float64)
-    D = cdist(X, Y)
-    D[np.isnan(D)] = np.inf
-    D[np.triu_indices(n=X.shape[0], m=Y.shape[0])] = np.inf
-    return np.any(D <= eps, axis=1)
+    The JAX package forms the dense (N, M) float64 distance matrix and
+    its triangle's index arrays; here row blocks of ``block`` rows meet
+    only the columns below them, with the same exact float64 differences
+    summed over the columns in order, so no (N, M) array exists. The
+    blocks run on ``device``, the run's device (an archive of 45 056 rows
+    is about 10^9 distances); the result comes back as a numpy bool
+    array."""
+    X = torch.as_tensor(np.asarray(X, dtype=np.float64), device=device)
+    Y = X if Y is None else torch.as_tensor(np.asarray(Y, dtype=np.float64), device=device)
+    nx, ny = X.shape[0], Y.shape[0]
+    B = int(block) if block is not None else max(1, (1 << 25) // max(ny, 1))
+    dup = torch.zeros(nx, dtype=torch.bool, device=device)
+    col = torch.arange(ny, device=device)
+    for i0 in range(0, nx, B):
+        i1 = min(i0 + B, nx)
+        m = min(i1 - 1, ny)  # the block's last row meets columns j < i1 - 1
+        if m <= 0:
+            continue
+        Xi, Yj = X[i0:i1], Y[:m]
+        s = torch.zeros((i1 - i0, m), dtype=torch.float64, device=device)
+        for k in range(X.shape[1]):
+            s += (Xi[:, k, None] - Yj[None, :, k]) ** 2
+        row = torch.arange(i0, i1, device=device)[:, None]
+        near = (torch.sqrt(s) <= eps) & (col[None, :m] < row)
+        dup[i0:i1] = near.any(dim=1)
+    return dup.cpu().numpy()
 
 
-def remove_duplicates(x, y, eps: float = 1e-16):
+def remove_duplicates(x, y, eps: float = 1e-16, device="cpu"):
     """Drop duplicate parameter rows (reference dmosopt/MOEA.py:439-443)."""
-    dup = get_duplicates(x, eps=eps)
+    dup = get_duplicates(x, eps=eps, device=device)
     return x[~dup], y[~dup]
 
 
@@ -428,7 +448,7 @@ def train(
             logger.info(f"Found {len(feasible)} feasible solutions")
         else:
             logger.info(f"Found {len(x)} solutions")
-    x, y = remove_duplicates(x, y)
+    x, y = remove_duplicates(x, y, device=device or "cpu")
 
     kwargs = dict(surrogate_method_kwargs or {})
     threshold = kwargs.pop("large_n_threshold", LARGE_N_THRESHOLD)
@@ -564,7 +584,7 @@ def epoch(
     if mdl.objective is not None:
         # dedupe resample candidates against already-evaluated points
         # (reference MOASMO.py:441-448)
-        is_duplicate = get_duplicates(best_x, x_0)
+        is_duplicate = get_duplicates(best_x, x_0, device=device or "cpu")
         best_x = best_x[~is_duplicate]
         best_y = best_y[~is_duplicate]
         D = _to_np(crowding_distance(torch.as_tensor(best_y)))
@@ -592,9 +612,11 @@ def get_best(
     return_perm: bool = False,
     return_feasible: bool = False,
     delete_duplicates: bool = True,
+    device="cpu",
 ):
     """Extract the non-dominated (rank-0) subset of evaluated points
-    (reference: dmosopt/MOASMO.py:581-639); host-side, on CPU tensors."""
+    (reference: dmosopt/MOASMO.py:581-639): numpy in and out, the dedupe
+    and the sort on ``device``."""
     xtmp = np.asarray(x)
     ytmp = np.asarray(y)
     f = np.asarray(f) if f is not None else None
@@ -608,13 +630,15 @@ def get_best(
         )
 
     if delete_duplicates:
-        keep = ~get_duplicates(ytmp)
+        keep = ~get_duplicates(ytmp, device=device)
         xtmp, ytmp = xtmp[keep], ytmp[keep]
         f = np.asarray(f)[keep] if f is not None else None
         c = np.asarray(c)[keep] if c is not None else None
         epochs = np.asarray(epochs)[keep] if epochs is not None else None
 
-    xs, ys, rank, _, perm = sort_mo(torch.as_tensor(xtmp), torch.as_tensor(ytmp))
+    xs, ys, rank, _, perm = sort_mo(
+        torch.as_tensor(xtmp, device=device), torch.as_tensor(ytmp, device=device)
+    )
     xs, ys, rank, perm = _to_np(xs), _to_np(ys), _to_np(rank), _to_np(perm)
     idxp = rank == 0
     best_x = xs[idxp, :]

@@ -20,7 +20,7 @@ import torch
 
 def _valid_mask(Y: torch.Tensor, mask) -> torch.Tensor:
     if mask is None:
-        return torch.ones(Y.shape[0], dtype=torch.bool, device=Y.device)
+        return torch.ones(Y.shape[:-1], dtype=torch.bool, device=Y.device)
     return mask.to(torch.bool)
 
 
@@ -30,22 +30,23 @@ def crowding_distance(Y: torch.Tensor, mask=None) -> torch.Tensor:
     boundary points get 1.0 per objective (not inf), interior points the
     neighbour gap ``US[i+1] - US[i-1]``, contributions summed over
     objectives, NaNs zeroed. Invalid (masked) rows return 0 and do not
-    perturb neighbours."""
-    n, d = Y.shape
+    perturb neighbours. ``Y`` is (n, d), or (S, n, d) for S independent
+    sets (``mask`` then (S, n))."""
+    n, d = Y.shape[-2:]
     valid = _valid_mask(Y, mask)
-    n_valid = valid.sum()
+    n_valid = valid.sum(dim=-1)[..., None, None]
 
     big = torch.finfo(Y.dtype).max  # a Python scalar: no host-to-device copy
-    Yv = torch.where(valid[:, None], Y, big)
-    lb = Yv.amin(dim=0, keepdim=True)
-    ub = torch.where(valid[:, None], Y, -big).amax(dim=0, keepdim=True)
+    Yv = torch.where(valid[..., None], Y, big)
+    lb = Yv.amin(dim=-2, keepdim=True)
+    ub = torch.where(valid[..., None], Y, -big).amax(dim=-2, keepdim=True)
     span = torch.where(ub - lb == 0.0, torch.ones_like(ub), ub - lb)
     U = (Yv - lb) / span  # invalid rows ~ +huge, sort to the end
 
-    US, idx = torch.sort(U, dim=0, stable=True)  # (n, d) per-objective order
+    US, idx = torch.sort(U, dim=-2, stable=True)  # per-objective order
 
-    prev = torch.cat([US[:1], US[:-1]], dim=0)
-    nxt = torch.cat([US[1:], US[-1:]], dim=0)
+    prev = torch.cat([US[..., :1, :], US[..., :-1, :]], dim=-2)
+    nxt = torch.cat([US[..., 1:, :], US[..., -1:, :]], dim=-2)
     gaps = nxt - prev
 
     pos = torch.arange(n, device=Y.device)[:, None]
@@ -57,27 +58,28 @@ def crowding_distance(Y: torch.Tensor, mask=None) -> torch.Tensor:
     # inverse permutation per column: row i's contribution sits at the
     # position it was sorted to
     inv = torch.empty_like(idx)
-    inv.scatter_(0, idx, pos.expand(n, d).contiguous())
-    contrib = torch.gather(DS, 0, inv)
-    D = torch.zeros(n, dtype=Y.dtype, device=Y.device)
+    inv.scatter_(-2, idx, pos.expand(idx.shape).contiguous())
+    contrib = torch.gather(DS, -2, inv)
+    D = torch.zeros(Y.shape[:-1], dtype=Y.dtype, device=Y.device)
     for j in range(d):  # the reference's summation order over objectives
-        D = D + contrib[:, j]
+        D = D + contrib[..., j]
     D = torch.nan_to_num(D, nan=0.0, posinf=0.0, neginf=0.0)
     # single-point convention: distance 1.0 (reference indicators.py:23-24)
-    D = torch.where(n_valid == 1, torch.ones_like(D), D)
+    D = torch.where(n_valid[..., 0] == 1, torch.ones_like(D), D)
     return torch.where(valid, D, torch.zeros_like(D))
 
 
 def euclidean_distance_metric(Y: torch.Tensor, mask=None) -> torch.Tensor:
     """Row-wise euclidean norm of unit-normalized objectives
-    (reference: dmosopt/indicators.py:54-62)."""
+    (reference: dmosopt/indicators.py:54-62); accepts a leading batch
+    axis as `crowding_distance` does."""
     valid = _valid_mask(Y, mask)
     big = torch.finfo(Y.dtype).max
-    lb = torch.where(valid[:, None], Y, big).amin(dim=0)
-    ub = torch.where(valid[:, None], Y, -big).amax(dim=0)
+    lb = torch.where(valid[..., None], Y, big).amin(dim=-2, keepdim=True)
+    ub = torch.where(valid[..., None], Y, -big).amax(dim=-2, keepdim=True)
     span = torch.where(ub - lb == 0.0, torch.ones_like(ub), ub - lb)
     U = (Y - lb) / span
-    out = torch.sqrt(torch.sum(U**2, dim=1))
+    out = torch.sqrt(torch.sum(U**2, dim=-1))
     return torch.where(valid, out, torch.zeros_like(out))
 
 

@@ -4,7 +4,9 @@ Port of ``dmosopt_tpu/ops/sort.py`` (``order_mo`` / ``sort_mo`` /
 ``remove_worst`` / ``top_k_mo``), after reference dmosopt/MOEA.py:242-423.
 Torch has no lexsort; `lexsort` below emulates ``jnp.lexsort`` with
 stable argsort passes from the least significant key to the most
-significant one.
+significant one. Every function accepts a leading batch axis ((S, n, d)
+objectives, (S, n) masks) and orders each set on its own, as the JAX
+package's ``vmap`` over SMPSO's swarms does.
 """
 
 from __future__ import annotations
@@ -27,13 +29,21 @@ _METRICS = {
 
 
 def lexsort(keys: Sequence[torch.Tensor]) -> torch.Tensor:
-    """``np.lexsort`` semantics: the LAST key is the primary one; ties
-    keep index order. Each pass is a stable sort of the current order by
-    one key, least significant first."""
-    perm = torch.argsort(keys[0], stable=True)
+    """``np.lexsort`` semantics along the last axis: the LAST key is the
+    primary one; ties keep index order. Each pass is a stable sort of
+    the current order by one key, least significant first."""
+    perm = torch.argsort(keys[0], dim=-1, stable=True)
     for k in keys[1:]:
-        perm = perm[torch.argsort(k[perm], stable=True)]
+        key = torch.take_along_dim(k, perm, dim=-1)
+        perm = torch.take_along_dim(perm, torch.argsort(key, dim=-1, stable=True), dim=-1)
     return perm
+
+
+def _take(a: torch.Tensor, perm: torch.Tensor) -> torch.Tensor:
+    """Rows of ``a`` (..., n[, k]) in the order ``perm`` (..., n)."""
+    if a.dim() == perm.dim():
+        return torch.take_along_dim(a, perm, dim=-1)
+    return torch.take_along_dim(a, perm[..., None], dim=-2)
 
 
 def resolve_metric(metric) -> Callable:
@@ -56,12 +66,16 @@ def order_mo(
     x_distance_metrics: Optional[Sequence] = None,
     y_distance_metrics: Optional[Sequence] = ("crowding",),
     mask=None,
+    need: Optional[int] = None,
 ):
     """Permutation ordering the population best-first: primary key =
     non-dominated rank, then each y-distance (descending), then each
     x-distance (descending) — reference ``orderMO`` (dmosopt/MOEA.py:300-347).
+    ``need``: only the best ``need`` positions must be right (the JAX
+    package's contract, ``dmosopt_tpu/ops/sort.py:31-83``); the exact
+    ranks used here order every position, a legal refinement.
     Returns (perm, rank_sorted, y_dists_sorted)."""
-    rank = non_dominated_rank(y, mask=mask)
+    rank = non_dominated_rank(y, mask=mask, stop_count=need)
     y_fns = [resolve_metric(m) for m in (y_distance_metrics or [])]
     x_fns = [resolve_metric(m) for m in (x_distance_metrics or [])]
     y_dists = [fn(y, mask) if _accepts_mask(fn) else fn(y) for fn in y_fns]
@@ -70,8 +84,8 @@ def order_mo(
     # y-dists descending, then x-dists descending
     keys = [-d for d in x_dists] + [-d for d in y_dists] + [rank]
     perm = lexsort(keys)
-    y_dists_sorted = tuple(d[perm] for d in y_dists)
-    return perm, rank[perm], y_dists_sorted
+    y_dists_sorted = tuple(_take(d, perm) for d in y_dists)
+    return perm, _take(rank, perm), y_dists_sorted
 
 
 def sort_mo(
@@ -80,13 +94,14 @@ def sort_mo(
     x_distance_metrics=None,
     y_distance_metrics=("crowding",),
     mask=None,
+    need: Optional[int] = None,
 ):
     """Sorted copies of (x, y) best-first plus ranks — reference ``sortMO``
-    (dmosopt/MOEA.py:242-297)."""
+    (dmosopt/MOEA.py:242-297). ``need`` as in `order_mo`."""
     perm, rank_sorted, y_dists_sorted = order_mo(
-        x, y, x_distance_metrics, y_distance_metrics, mask=mask
+        x, y, x_distance_metrics, y_distance_metrics, mask=mask, need=need
     )
-    return x[perm], y[perm], rank_sorted, y_dists_sorted, perm
+    return _take(x, perm), _take(y, perm), rank_sorted, y_dists_sorted, perm
 
 
 def remove_worst(
@@ -102,9 +117,9 @@ def remove_worst(
         population_parm, population_obj,
         x_distance_metrics=x_distance_metrics,
         y_distance_metrics=y_distance_metrics,
-        mask=mask,
+        mask=mask, need=pop,
     )
-    return xs[:pop], ys[:pop], rank[:pop], perm[:pop]
+    return xs[..., :pop, :], ys[..., :pop, :], rank[..., :pop], perm[..., :pop]
 
 
 def top_k_mo(x, y, top_k: Optional[int] = None):

@@ -119,7 +119,8 @@ def sobol_block(sv, shift: torch.Tensor, n: int) -> torch.Tensor:
     device (reference ``dmosopt_tpu/sampling.py:131``).
 
     ``sv`` is the (dim, bits) direction-number table of
-    `sobol_direction_numbers`; ``shift`` holds (dim,) random 32-bit words
+    `sobol_direction_numbers` (or that table as an int64 tensor already
+    on the device, which spares a host-to-device copy per call); ``shift`` holds (dim,) random 32-bit words
     (`sobol_shift`), of which the top ``bits`` are XORed into every
     point, a randomized-QMC digital shift. Point k is the XOR of the
     direction numbers picked by the set bits of gray(k) = k ^ (k >> 1).
@@ -129,7 +130,9 @@ def sobol_block(sv, shift: torch.Tensor, n: int) -> torch.Tensor:
     float32's 24-bit mantissa before the cast, so no point rounds up to
     1.0. Returns (n, dim) float32 in [0, 1)."""
     dev = shift.device
-    sv = torch.as_tensor(np.asarray(sv, dtype=np.int64), device=dev)
+    if not torch.is_tensor(sv):
+        sv = np.asarray(sv, dtype=np.int64)
+    sv = torch.as_tensor(sv, dtype=torch.int64, device=dev)
     dim, bits = sv.shape
     idx = torch.arange(n, dtype=torch.int64, device=dev)
     gray = idx ^ (idx >> 1)

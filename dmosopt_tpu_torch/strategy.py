@@ -170,7 +170,7 @@ class DistOptStrategy:
     # ----------------------------------------------------- archive upkeep
 
     def _remove_duplicate_evals(self):
-        is_duplicate = get_duplicates(self.x)
+        is_duplicate = get_duplicates(self.x, device=self.device or "cpu")
         self.x = self.x[~is_duplicate]
         self.y = self.y[~is_duplicate]
         if self.c is not None:
@@ -178,10 +178,14 @@ class DistOptStrategy:
 
     def _reduce_evals(self):
         """Trim the archive to the best `population_size` points
-        (reference dmosopt.py:219-229)."""
+        (reference dmosopt.py:219-229), ranked on the run's device."""
         self._remove_duplicate_evals()
-        perm, _, _ = order_mo(torch.as_tensor(self.x), torch.as_tensor(self.y))
-        perm = perm.numpy()[: self.population_size]
+        dev = self.device or "cpu"
+        perm, _, _ = order_mo(
+            torch.as_tensor(self.x, device=dev), torch.as_tensor(self.y, device=dev),
+            need=self.population_size,
+        )
+        perm = perm[: self.population_size].cpu().numpy()
         self.x = self.x[perm, :]
         self.y = self.y[perm, :]
         if self.c is not None:
@@ -323,6 +327,7 @@ class DistOptStrategy:
         bestx, besty, _, bestc, _, _ = opt.get_best(
             self.x, self.y, None, self.c,
             self.prob.dim, self.prob.n_objectives, feasible=feasible,
+            device=self.device or "cpu",
         )
         return bestx, besty, bestc
 
