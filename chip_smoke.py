@@ -18,7 +18,12 @@ It imports nothing of JAX nor of the JAX package. Phases, in order:
    pairs of 10 genes from a population of 100, pool 50) and at 65536
    pairs of 256 genes (population 131072, pool 65536), plus once with a live pool
    smaller than the pool, as an adaptive population size passes it,
-   and the mutation kernel at the Lorenz run's (20480, 3) in its box.
+   and the mutation kernel at the Lorenz run's (20480, 3) in its box;
+   the SBX and mutation kernels at the constrained run's children call
+   (100 pairs of 2 genes in TNK's box), and the fused kernel at the
+   constrained run's step (50 pairs of 2 genes) and at the SA run's (50
+   pairs of 10 genes) with distinct per-gene distribution indices, as the
+   sensitivity analysis sets them.
    For each it prints the device
    time per launch, the plain version's, the host time per call of
    both, the bytes the function must move, GB/s, and the bound;
@@ -102,7 +107,44 @@ It imports nothing of JAX nor of the JAX package. Phases, in order:
    CMA-ES none); then the JAX package's CMA-ES and TRS solution-quality
    oracles (``tests/test_optimizers.py::test_cmaes_trs_solution_quality_oracles``:
    pop 200, 250 generations, ZDT1 dim 30 and DTLZ2 dim 12 with 3
-   objectives) with its median and within-0.05 bars.
+   objectives) with its median and within-0.05 bars;
+9. the constrained run of ``examples/example_tnk.py`` at full width (TNK
+   as a host objective returning ``(y, c)``, 2 parameters in [1e-6, pi],
+   the ``logreg`` feasibility model, NSGA-II, pop 100, 50 generations,
+   20 initial points per parameter, 4 epochs, resample fraction 0.5,
+   seed 1, `gpr` defaults) with a ``dynamic_initial_sampling`` hook
+   that, while fewer than TNK_QUOTA evaluated rows are feasible, proposes
+   200 SBX/mutation children of the feasible rows made on the card
+   (`ParamSpacePoints` with parents), with the counters reset just
+   before it and read just after: the fused kernel launches once per
+   generation, SBX once and mutation twice per hook round that made
+   children (at least one: the design holds fewer feasible rows than
+   the quota), a feasibility model is fitted in each of the 4 epochs,
+   every returned point is feasible and the set non-dominated, and the
+   archive holds each row once, all finite. The resamples' feasible
+   share and the returned set's hypervolume against (1.2, 1.2) are
+   printed and not gated: at this configuration neither moves when the
+   feasibility rank is replaced by noise, and the JAX package's readings
+   span the noise copy's (``tools/tnk_quality.py``, PERF.md section 6).
+   Then ``bench.py``'s Config 3 (AGE-MOEA with ``logreg``, pop 100, 100
+   generations, 8 initial points per parameter, 5 epochs, resample 0.25,
+   `gpr` with 4 starts and 100 steps, seed 42) with the same launch,
+   feasibility and archive checks, printing its wall;
+10. the sensitivity-guided run of ``examples/example_zdt1_sa.py`` at full
+   width (ZDT1 with 10 parameters as a batched torch objective, NSGA-II,
+   pop 100, 50 generations, 5 initial points per parameter, 3 epochs,
+   resample fraction 0.5, seed 3, FAST sensitivity at 10 000 samples a
+   parameter), with the counters reset just before it and read just
+   after: the fused kernel launches once per generation and the
+   standalone kernels never; each epoch's ``di_mutation`` vector is
+   printed and held, with ``di_crossover``, against `analyze_sensitivity`
+   recomputed from the epoch's fit moved to the host (1e-4 relative),
+   beside the time of the 100 000-row surrogate evaluation on the card;
+   DGSM runs once on the last fit, timed; the returned set is
+   non-dominated and closer to the ZDT1 front than the initial design.
+
+``python3 chip_smoke.py --phases 2,9,10`` runs the named phases only
+(phase 1 always), without the kernels and result lines.
 
 The line before the last is a JSON object ``{"kernels": [...]}``; the
 last is ``{"ok": true, "device": {...}}``. Any failed check raises, so
@@ -150,12 +192,18 @@ CONFIG5_GENERATIONS = 3
 # of the three objectives) below this fraction of as many uniform random
 # points' (tools/lorenz_quality.py; PERF.md section 6)
 LORENZ_MEDIAN_BAR = 0.9
-# offspring step shapes: (npairs, n, population, pool size)
+# the children call of the constrained run's hook (phase 9): 100 pairs
+# of TNK's 2 genes in its box
+CHILDREN_SHAPE = (100, 2)
+# offspring step shapes: (npairs, n, population, pool size); the SA run's
+# step (phase 10) takes non-uniform per-gene distribution indices
 OFFSPRING_SHAPES = {
     "main": (100, 30, 200, 100),
     "direct": (50, 30, 100, 50),
     "file": (50, 10, 100, 50),
     "many_objective": (50, 14, 100, 50),
+    "constrained": (50, 2, 100, 50),
+    "sa": (50, 10, 100, 50),
     "large": (65536, 256, 131072, 65536),
 }
 # calls queued per timing round: the kernels launch once per call, the
@@ -227,14 +275,17 @@ def _kernel_inputs(torch, name, B, n, seed, box=None):
     return (rand(B, n), rand(B, n), rand(B, n), di, xlb, xub)
 
 
-def _offspring_inputs(torch, npairs, n, pop, poolsize, seed, live=None):
+def _offspring_inputs(torch, npairs, n, pop, poolsize, seed, live=None,
+                      per_gene_di=False):
     """Operands of the main path's offspring step, in its layout: a
     population in the unit box, a mating pool of distinct rows, the pair
     and gene uniforms as views of one draw, the pool size as 0-d device
     tensors (``live`` of the pool's slots, shift bound at least 2, when
     given, as an adaptive population size passes it), the default
     NSGA-II rates (pc 0.9, pm 0.1, rate 1/n, di 1 and 20) as device
-    tensors, and the bounds as the strided columns of an (n, 2) tensor."""
+    tensors, and the bounds as the strided columns of an (n, 2) tensor.
+    With ``per_gene_di`` the distribution indices are distinct per gene
+    in [1, 20], as the SA run's sensitivity sets them."""
     g = torch.Generator(device="cuda").manual_seed(seed)
     dev = "cuda"
     parm = torch.rand((pop, n), generator=g, device=dev)
@@ -248,9 +299,12 @@ def _offspring_inputs(torch, npairs, n, pop, poolsize, seed, live=None):
         pool_n = torch.tensor(live, dtype=torch.int32, device=dev)
         shift_hi = torch.clamp(pool_n, min=2)
     scalar = lambda v: torch.tensor(v, dtype=torch.float32, device=dev)  # noqa: E731
+    di_x, di_m = torch.full((n,), 1.0, device=dev), torch.full((n,), 20.0, device=dev)
+    if per_gene_di:
+        di_m = 1.0 + 19.0 * torch.rand(n, generator=g, device=dev)
+        di_x = di_m[torch.randperm(n, generator=g, device=dev)]
     return (parm, pool_idx, r, u, pool_n, shift_hi, scalar(0.9), scalar(0.1),
-            scalar(1.0 / n), torch.full((n,), 1.0, device=dev),
-            torch.full((n,), 20.0, device=dev), bounds[:, 0], bounds[:, 1])
+            scalar(1.0 / n), di_x, di_m, bounds[:, 0], bounds[:, 1])
 
 
 def _offspring_work(torch, V, args, is_x):
@@ -311,7 +365,7 @@ def _check_offspring(torch, V, K, label, shape, live=None):
     the error and the tags."""
     npairs, n, pop, poolsize = shape
     args = _offspring_inputs(torch, npairs, n, pop, poolsize, seed=npairs + n,
-                             live=live)
+                             live=live, per_gene_di=label == "sa")
     got, got_x = K.launch_offspring(*args)
     want, want_x = V._offspring_core(*args)
     torch.cuda.synchronize()
@@ -334,12 +388,14 @@ def check_kernels(torch, V):
     report = {}
     for name, (kernel, plain, line) in kernels.items():
         rows = {}
-        shapes = dict(SHAPES)
+        # the constrained run's children call, one SBX and two mutation
+        # launches on its parent pairs in TNK's box
+        shapes = dict(SHAPES, children=CHILDREN_SHAPE)
         if name == "mutation":
             # SMPSO's turbulence step in the Lorenz run: all swarms' parents
             shapes["lorenz"] = LORENZ_MUTATION_SHAPE
         for label, (B, n) in shapes.items():
-            box = LORENZ_BOX if label == "lorenz" else None
+            box = {"lorenz": LORENZ_BOX, "children": ([TNK_BOX[0]] * n, [TNK_BOX[1]] * n)}.get(label)
             args = _kernel_inputs(torch, name, B, n, seed=B + n, box=box)
             got = kernel(*args)
             want = plain(*args)
@@ -740,6 +796,113 @@ def many_objective(torch, V, smi):
     return launches
 
 
+# the constrained run (phase 9): examples/example_tnk.py's box, its
+# initial design (20 points per parameter), the hook's feasibility quota,
+# and the reference point of the returned set's hypervolume
+TNK_BOX = (1e-6, 3.141592653589793)
+TNK_N0 = 20 * 2
+TNK_QUOTA = 10
+TNK_REF = (1.2, 1.2)
+# children of each hook round, one entry per round that made children
+TNK_HOOK_ROUNDS = []
+
+
+def tnk_obj(pp):
+    """examples/example_tnk.py's objective: (x1, x2) with constraints
+    c >= 0 feasible."""
+    import numpy as np
+
+    x1, x2 = pp["x1"], pp["x2"]
+    c1 = x1**2 + x2**2 - 1.0 - 0.1 * np.cos(16.0 * np.arctan2(x1, x2 + 1e-12))
+    c2 = 0.5 - (x1 - 0.5) ** 2 - (x2 - 0.5) ** 2
+    return np.array([x1, x2]), np.array([c1, c2])
+
+
+def tnk_params(opt_id, obj_fun, seed=1, **over):
+    """examples/example_tnk.py's parameters."""
+    params = {
+        "opt_id": opt_id, "obj_fun": obj_fun, "problem_parameters": {},
+        "space": {"x1": list(TNK_BOX), "x2": list(TNK_BOX)},
+        "objective_names": ["f1", "f2"], "constraint_names": ["c1", "c2"],
+        "feasibility_method_name": "logreg", "population_size": 100,
+        "num_generations": 50, "optimizer_name": "nsga2",
+        "surrogate_method_name": "gpr", "n_initial": 20, "n_epochs": 4,
+        "resample_fraction": 0.5, "random_seed": seed,
+    }
+    params.update(over)
+    return params
+
+
+def tnk_space(sampler):
+    """The sampler's box as a `ParamSpacePoints` space."""
+    return {k: [float(lo), float(hi)] for k, lo, hi in
+            zip(sampler["param_names"], sampler["xlb"], sampler["xub"])}
+
+
+def quota_parents(evaluated_samples, quota, iteration, max_rounds):
+    """The parents of the hook's next round: the feasible evaluated rows
+    (the 4 rows of largest least constraint while fewer than 2 are
+    feasible), or None once ``quota`` rows are feasible or after
+    ``max_rounds`` rounds."""
+    import numpy as np
+
+    x = np.array([e.parameters for e in evaluated_samples])
+    c = np.array([e.constraints for e in evaluated_samples])
+    feasible = np.all(c > 0.0, axis=1)
+    if feasible.sum() >= quota or iteration >= max_rounds:
+        return None
+    if feasible.sum() >= 2:
+        return x[feasible]
+    return x[np.argsort(-c.min(axis=1))[:4]]
+
+
+def tnk_quota_sampler(file_path, iteration, evaluated_samples, next_samples, sampler,
+                      quota=TNK_QUOTA, n_children=200, max_rounds=8, device=None,
+                      **_):
+    """Epoch-0 ``dynamic_initial_sampling`` hook of the constrained run:
+    while fewer than ``quota`` evaluated rows are feasible, propose
+    ``n_children`` SBX/mutation children of the feasible rows
+    (`ParamSpacePoints` with parents, made on ``device``); then None."""
+    import numpy as np
+
+    from dmosopt_tpu_torch.constrained_sampling import ParamSpacePoints
+
+    parents = quota_parents(evaluated_samples, quota, iteration, max_rounds)
+    if parents is None:
+        return None
+    names = list(sampler["param_names"])
+    ps = ParamSpacePoints(
+        n_children, tnk_space(sampler), seed=iteration, device=device,
+        parents={"params": np.array(names), "values": parents},
+    )
+    TNK_HOOK_ROUNDS.append(ps.values.shape[0])
+    return np.column_stack([ps.as_dict()[k] for k in names])
+
+
+def hypervolume_2d(y, ref):
+    """Area dominated by the 2-objective points ``y`` up to ``ref``."""
+    import numpy as np
+
+    y = y[(y[:, 0] < ref[0]) & (y[:, 1] < ref[1])]
+    area, best = 0.0, ref[1]
+    for f1, f2 in y[np.argsort(y[:, 0], kind="stable")]:
+        if f2 < best:
+            area += (ref[0] - f1) * (best - f2)
+            best = f2
+    return float(area)
+
+
+def tnk_quality(evaluated, n_pre, y_best):
+    """(feasible share of the rows evaluated after the first ``n_pre``,
+    hypervolume of the returned set against TNK_REF); ``evaluated`` rows
+    are (x1, x2, c1, c2) in evaluation order."""
+    import numpy as np
+
+    resampled = evaluated[n_pre:]
+    share = float(np.mean(np.all(resampled[:, 2:] > 0.0, axis=1)))
+    return share, hypervolume_2d(y_best, TNK_REF)
+
+
 class _Instrument:
     """Per-epoch wall time of the Lorenz run's rank calls, archive
     dedupes and objective calls, and the extra device memory of its
@@ -1026,6 +1189,254 @@ def quality_oracles(torch, smi):
         assert (d <= 0.05).sum() >= within_bar, (name, prob, int((d <= 0.05).sum()))
 
 
+def _check_feasibility_epochs(dopt, n_epochs, label, smi):
+    """A feasibility model was fitted (both classes seen, at least one
+    classifier trained) in every epoch; prints each epoch's times."""
+    assert len(dopt.epoch_stats) == n_epochs, dopt.epoch_stats
+    for s in dopt.epoch_stats:
+        print(
+            f"[{smi}] {label} epoch {s['epoch']}: {s['epoch_s']:.3f} s, feasibility "
+            f"fit {s['feasibility_s']:.3f} s ({s.get('feasibility')}), GP fit "
+            f"{s['train_s']:.3f} s, EA {s['optimize_s']:.3f} s over "
+            f"{s['n_generations']} generations; kernel launches {s['kernel_launches']}"
+        )
+        assert s.get("feasibility", {}).get("n_fitted", 0) >= 1, (label, s)
+        assert s["kernel_launches"]["offspring"] == s["n_generations"], s
+
+
+def _check_returned(best, label):
+    """The returned set is feasible (every constraint > 0), finite and
+    non-dominated; returns its objectives."""
+    import numpy as np
+
+    y = np.column_stack([v for _, v in best[1]])
+    c = np.column_stack([v for _, v in best[2]])
+    assert y.shape[0] > 0 and np.all(np.isfinite(y)), label
+    assert np.all(c > 0.0), (label, c.min())
+    le = np.all(y[:, None, :] <= y[None, :, :], axis=2)
+    lt = np.any(y[:, None, :] < y[None, :, :], axis=2)
+    assert not np.any(le & lt), f"{label}: returned set is dominated"
+    return y
+
+
+def bench_tnk_obj(pp):
+    """bench.py Config 3's TNK objective."""
+    import numpy as np
+
+    x1, x2 = pp["x1"], pp["x2"]
+    theta = np.arctan2(x2, x1)
+    c1 = x1**2 + x2**2 - 1.0 - 0.1 * np.cos(16.0 * theta)
+    c2 = 0.5 - (x1 - 0.5) ** 2 - (x2 - 0.5) ** 2
+    return np.array([x1, x2]), np.array([c1, c2])
+
+
+def constrained_run(torch, V, smi):
+    """Phase 9: examples/example_tnk.py's configuration with the
+    feasibility-quota hook, then bench.py's Config 3; returns the kernel
+    launch counts of the TNK run."""
+    import numpy as np
+
+    import dmosopt_tpu_torch
+    from dmosopt_tpu_torch.driver import dopt_dict
+
+    evaluated = []
+
+    def objective(pp):
+        y, c = tnk_obj(pp)
+        evaluated.append(np.concatenate([[pp["x1"], pp["x2"]], c]))
+        return y, c
+
+    params = tnk_params(
+        "dmosopt_tnk", objective,
+        dynamic_initial_sampling=f"{__name__}.tnk_quota_sampler",
+    )
+    TNK_HOOK_ROUNDS.clear()
+    V.reset_kernel_launches()
+    t0 = time.perf_counter()
+    best = dmosopt_tpu_torch.run(params, verbose=False, return_constraints=True)
+    wall = time.perf_counter() - t0
+    launches = dict(V.KERNEL_LAUNCHES)
+    dopt = dopt_dict["dmosopt_tnk"]
+    _check_feasibility_epochs(dopt, 4, "constrained run", smi)
+    n_gen = sum(s["n_generations"] for s in dopt.epoch_stats)
+    rounds = len(TNK_HOOK_ROUNDS)
+    n_hook = sum(TNK_HOOK_ROUNDS)
+    print(f"constrained run kernel launches: {launches}; {rounds} hook round(s) "
+          f"made {n_hook} children")
+    assert n_gen == 4 * 50, n_gen
+    assert rounds >= 1, "the initial design met the feasibility quota on its own"
+    assert launches == {"offspring": n_gen, "sbx": rounds, "mutation": 2 * rounds}, launches
+
+    ev = np.asarray(evaluated)
+    n_pre = TNK_N0 + n_hook
+    n_feasible_pre = int(np.all(ev[:n_pre, 2:] > 0.0, axis=1).sum())
+    assert n_feasible_pre >= TNK_QUOTA, n_feasible_pre
+    assert n_pre < dopt.eval_count <= n_pre + 3 * 50, dopt.eval_count
+    assert len(ev) == dopt.eval_count
+    x_all, y_all = dopt.optimizer_dict[0].get_evals()
+    _check_archive(x_all, y_all, dopt.eval_count, "constrained run")
+    y = _check_returned(best, "constrained run")
+    share, hv = tnk_quality(ev, n_pre, y)
+    print(
+        f"[{smi}] constrained run(): {wall:.3f} s for 4 epochs; {len(ev)} evaluations "
+        f"({TNK_N0} design, {n_hook} hook children, {n_feasible_pre} feasible before "
+        f"the first fit); {y.shape[0]} returned points, all feasible; resamples' "
+        f"feasible share {share:.4f}, returned set's hypervolume {hv:.6f} "
+        f"(reference point {TNK_REF}; printed, not gated: a noise feasibility rank "
+        f"reads within the JAX package's range, tools/tnk_quality.py)"
+    )
+
+    # bench.py Config 3: AGE-MOEA through the feasibility path
+    V.reset_kernel_launches()
+    t0 = time.perf_counter()
+    best3 = dmosopt_tpu_torch.run({
+        "opt_id": "bench_tnk", "obj_fun": bench_tnk_obj,
+        "objective_names": ["f1", "f2"], "constraint_names": ["c1", "c2"],
+        "space": {"x1": [1e-12, float(np.pi)], "x2": [1e-12, float(np.pi)]},
+        "problem_parameters": {}, "n_initial": 8, "n_epochs": 5,
+        "population_size": 100, "num_generations": 100, "resample_fraction": 0.25,
+        "optimizer_name": "age", "surrogate_method_name": "gpr",
+        "surrogate_method_kwargs": {"n_starts": 4, "n_iter": 100, "seed": 0},
+        "feasibility_method_name": "logreg", "random_seed": 42,
+    }, verbose=False, return_constraints=True)
+    wall3 = time.perf_counter() - t0
+    launches3 = dict(V.KERNEL_LAUNCHES)
+    dopt3 = dopt_dict["bench_tnk"]
+    _check_feasibility_epochs(dopt3, 5, "Config 3", smi)
+    n_gen3 = sum(s["n_generations"] for s in dopt3.epoch_stats)
+    assert n_gen3 == 5 * 100, n_gen3
+    assert launches3 == {"offspring": n_gen3, "sbx": 0, "mutation": 0}, launches3
+    x3, y3 = dopt3.optimizer_dict[0].get_evals()
+    _check_archive(x3, y3, dopt3.eval_count, "Config 3")
+    yb3 = _check_returned(best3, "Config 3")
+    print(f"[{smi}] Config 3 (AGE-MOEA, logreg): run() {wall3:.3f} s for 5 epochs, "
+          f"{dopt3.eval_count} evaluations, {yb3.shape[0]} returned points")
+    return launches
+
+
+def _cpu_copy(torch, sm):
+    """The fitted surrogate with its fit moved to the host."""
+    import copy
+
+    cpu = copy.copy(sm)
+    cpu.device = torch.device("cpu")
+    cpu._xlb_t, cpu._xrg_t = sm._xlb_t.cpu(), sm._xrg_t.cpu()
+    cpu.fit = copy.copy(sm.fit)
+    for k, v in vars(sm.fit).items():
+        if isinstance(v, torch.Tensor):
+            setattr(cpu.fit, k, v.cpu())
+    return cpu
+
+
+def sa_run(torch, V, smi):
+    """Phase 10: examples/example_zdt1_sa.py's configuration (FAST
+    sensitivity setting per-gene distribution indices); each epoch's
+    indices are held against `analyze_sensitivity` recomputed on the
+    host from the epoch's fit, and DGSM runs once on the last fit.
+    Returns the kernel launch counts of the run."""
+    import numpy as np
+
+    import dmosopt_tpu_torch
+    from dmosopt_tpu_torch import moasmo
+    from dmosopt_tpu_torch.benchmarks.zdt import distance_to_front, zdt1, zdt1_pareto
+    from dmosopt_tpu_torch.driver import dopt_dict
+    from dmosopt_tpu_torch.sa import SA_DGSM, SA_FAST
+
+    dim, n_initial = 10, 5
+    calls = []
+    analyze = moasmo.analyze_sensitivity
+
+    def recorded(sm, *args, **kwargs):
+        out = analyze(sm, *args, **kwargs)
+        calls.append((sm, args, kwargs, out))
+        return out
+
+    params = {
+        "opt_id": "dmosopt_zdt1_sa", "obj_fun": zdt1, "torch_objective": True,
+        "problem_parameters": {},
+        "space": {f"x{i + 1}": [0.0, 1.0] for i in range(dim)},
+        "objective_names": ["y1", "y2"], "population_size": 100,
+        "num_generations": 50, "optimizer_name": "nsga2",
+        "surrogate_method_name": "gpr", "sensitivity_method_name": "fast",
+        "sensitivity_method_kwargs": {}, "n_initial": n_initial, "n_epochs": 3,
+        "resample_fraction": 0.5, "random_seed": 3,
+    }
+    moasmo.analyze_sensitivity = recorded
+    try:
+        V.reset_kernel_launches()
+        t0 = time.perf_counter()
+        best = dmosopt_tpu_torch.run(params, verbose=False)
+        wall = time.perf_counter() - t0
+        launches = dict(V.KERNEL_LAUNCHES)
+    finally:
+        moasmo.analyze_sensitivity = analyze
+    dopt = dopt_dict["dmosopt_zdt1_sa"]
+    n_gen = sum(s["n_generations"] for s in dopt.epoch_stats)
+    print(f"SA run kernel launches: {launches}")
+    assert n_gen == 3 * 50, n_gen
+    assert launches == {"offspring": n_gen, "sbx": 0, "mutation": 0}, launches
+    assert len(calls) == 3, len(calls)
+
+    lb, ub = np.zeros(dim), np.ones(dim)
+    design = SA_FAST(lb, ub, list(params["space"]), params["objective_names"]).sample()
+    for s, (sm, args, kwargs, out) in zip(dopt.epoch_stats, calls):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        sm.evaluate(design)
+        torch.cuda.synchronize()
+        eval_s = time.perf_counter() - t1
+        host = analyze(_cpu_copy(torch, sm), *args, **kwargs)
+        for key in ("di_mutation", "di_crossover"):
+            np.testing.assert_allclose(out[key], host[key], rtol=1e-4, atol=0)
+        assert np.all(s["di_mutation"] == out["di_mutation"])
+        print(
+            f"[{smi}] SA epoch {s['epoch']}: {s['epoch_s']:.3f} s, GP fit "
+            f"{s['train_s']:.3f} s, sensitivity {s['sensitivity_s']:.3f} s (the "
+            f"{design.shape[0]}-row surrogate evaluation {eval_s * 1e3:.2f} ms), EA "
+            f"{s['optimize_s']:.3f} s; di_mutation {np.round(out['di_mutation'], 4).tolist()} "
+            f"(host recomputation within 1e-4 relative); kernel launches "
+            f"{s['kernel_launches']}"
+        )
+        assert s["kernel_launches"]["offspring"] == s["n_generations"], s
+
+    sm = calls[-1][0]
+    dgsm = SA_DGSM(lb, ub, list(params["space"]), params["objective_names"])
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    res = dgsm.analyze(sm)
+    dgsm_s = time.perf_counter() - t1
+    s1 = np.vstack([res["S1"][k] for k in params["objective_names"]])
+    assert s1.shape == (2, dim) and np.all(np.isfinite(s1)), s1
+
+    x_all, y_all = dopt.optimizer_dict[0].get_evals()
+    _check_archive(x_all, y_all, dopt.eval_count, "SA run")
+    y = np.column_stack([v for _, v in best[1]])
+    assert y.shape[0] > 0 and np.all(np.isfinite(y))
+    le = np.all(y[:, None, :] <= y[None, :, :], axis=2)
+    lt = np.any(y[:, None, :] < y[None, :, :], axis=2)
+    assert not np.any(le & lt), "returned set is dominated"
+    front = zdt1_pareto(1000)
+    d_best = float(np.median(distance_to_front(y, front)))
+    d_init = float(np.median(distance_to_front(y_all[: n_initial * dim], front)))
+    print(
+        f"[{smi}] SA run(): {wall:.3f} s for 3 epochs; DGSM on the last fit "
+        f"{dgsm_s:.3f} s (S1 max {float(s1.max()):.4f}); {y.shape[0]} returned "
+        f"points, median distance to the front {d_best:.4f} (initial design "
+        f"{d_init:.4f})"
+    )
+    assert d_best < d_init, (d_best, d_init)
+    return launches
+
+
+def _requested_phases(argv):
+    """The phases of ``--phases 2,9,10``, or None for the whole script."""
+    if not argv:
+        return None
+    if len(argv) != 2 or argv[0] != "--phases":
+        raise SystemExit("usage: python3 chip_smoke.py [--phases 2,9,10]")
+    return {int(p) for p in argv[1].split(",")}
+
+
 def main() -> int:
     import torch
 
@@ -1044,6 +1455,21 @@ def main() -> int:
         f"TF32 off for float32 matmul"
     )
 
+    phases = _requested_phases(sys.argv[1:])
+    if phases is not None:
+        # a partial run (``--phases 2,9``): the named phases' checks only,
+        # with no kernels line and no result line
+        runs = {2: check_kernels, 3: direct_ea, 4: quick_start, 5: file_backed,
+                6: many_objective, 7: lorenz_run, 8: config5_loop,
+                9: constrained_run, 10: sa_run}
+        for p in sorted(phases):
+            t0 = time.perf_counter()
+            fn = runs[p]
+            fn(torch, V) if p <= 4 else fn(torch, V, smi)
+            print(f"[{smi}] phase {p} {time.perf_counter() - t0:.1f} s")
+        print(f"partial run of phases {sorted(phases)} passed")
+        return 0
+
     t0 = time.perf_counter()
     report = check_kernels(torch, V)
     print(f"kernels built and checked in {time.perf_counter() - t0:.1f} s")
@@ -1055,15 +1481,22 @@ def main() -> int:
     launches_lorenz = lorenz_run(torch, V, smi)
     t1 = time.perf_counter()
     config5_loop(torch, V, smi)
-    print(f"[{smi}] phase 7 {t1 - t0:.1f} s, phase 8 {time.perf_counter() - t1:.1f} s")
+    t2 = time.perf_counter()
+    launches_constrained = constrained_run(torch, V, smi)
+    t3 = time.perf_counter()
+    launches_sa = sa_run(torch, V, smi)
+    t4 = time.perf_counter()
+    print(f"[{smi}] phase 7 {t1 - t0:.1f} s, phase 8 {t2 - t1:.1f} s, phase 9 "
+          f"{t3 - t2:.1f} s, phase 10 {t4 - t3:.1f} s")
     assert "jax" not in sys.modules and "dmosopt_tpu" not in sys.modules
 
     kernels = []
     for name, rep in report.items():
         # the top-level numbers are at the shape of the kernel's driven
-        # path: the Lorenz run's for the mutation kernel (its only one),
-        # the quick start's for the others
-        top = "lorenz" if "lorenz" in rep["rows"] else "main"
+        # path: the Lorenz run's for the mutation kernel (its largest),
+        # the constrained run's children call for SBX (its only one), the
+        # quick start's for the fused step
+        top = {"mutation": "lorenz", "sbx": "children"}.get(name, "main")
         main_row = rep["rows"][top]
         kernels.append({
             "name": rep["name"], "route": rep["route"], "source": rep["source"],
@@ -1071,13 +1504,16 @@ def main() -> int:
             "launches_file_run": launches_file[name],
             "launches_many_objective_run": launches_many[name],
             "launches_lorenz_run": launches_lorenz[name],
+            "launches_constrained_run": launches_constrained[name],
+            "launches_sa_run": launches_sa[name],
             "max_abs_err": max(r["max_abs_err"] for r in rep["rows"].values()),
             "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
             "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
             "library_ms": None, "shape": main_row["shape"],
             "host_ms": main_row["host_ms"], "plain_host_ms": main_row["plain_host_ms"],
             "large": rep["rows"]["large"],
-            **{k: rep["rows"][k] for k in ("main", "direct", "file", "many_objective")
+            **{k: rep["rows"][k] for k in ("main", "direct", "file", "many_objective",
+                                           "constrained", "sa", "children")
                if k in rep["rows"] and k != top},
             **({"also_replaces": rep["also_replaces"]} if "also_replaces" in rep else {}),
         })

@@ -39,6 +39,15 @@ default_surrogate_methods = {
     "gpr": "dmosopt_tpu_torch.models.gp.GPR_Matern",
 }
 
+default_sa_methods = {
+    "dgsm": "dmosopt_tpu_torch.sa.SA_DGSM",
+    "fast": "dmosopt_tpu_torch.sa.SA_FAST",
+}
+
+default_feasibility_methods = {
+    "logreg": "dmosopt_tpu_torch.feasibility.LogisticFeasibilityModel"
+}
+
 
 def as_tuple(value):
     """Normalize a scalar-or-sequence config value (optimizer cycling takes

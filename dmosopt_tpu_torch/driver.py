@@ -14,18 +14,24 @@ CUDA; a machine without one raises unless the caller passes
 
 ``termination_conditions`` (a dict of `create_adaptive_termination`
 options, a callable of the problem, or True) stops each epoch's inner
-EA as the JAX package's does. The driver options of the JAX package
-that this port does not carry yet raise `NotImplementedError` instead
-of being ignored: several problems (``problem_ids``), features, dynamic
-initial sampling, custom surrogate training, mean-variance
-optimization, sensitivity and feasibility methods, ``jax_objective``,
-an external ``evaluator``, meshes, tenant batching, telemetry, and
-surrogate refit modes other than cold. A store written with features
-or several problems cannot be resumed here either.
+EA as the JAX package's does. Constraints (an objective returning
+``(y, c)``, host or batched torch) feed the feasibility model named by
+``feasibility_method_name``; ``sensitivity_method_name`` sets the
+optimizer's per-gene distribution indices each epoch; a
+``dynamic_initial_sampling`` hook (an import path) adds evaluation
+rounds to the initial design until it returns None. The driver options
+of the JAX package that this port does not carry yet raise
+`NotImplementedError` instead of being ignored: several problems
+(``problem_ids``), features, custom surrogate training, mean-variance
+optimization, ``jax_objective``, an external ``evaluator``, meshes,
+tenant batching, telemetry, and surrogate refit modes other than cold.
+A store written with features or several problems cannot be resumed
+here either.
 """
 
 from __future__ import annotations
 
+import itertools
 import logging
 import os
 import time
@@ -35,9 +41,11 @@ from typing import Dict
 import numpy as np
 import torch
 
+from dmosopt_tpu_torch import moasmo as opt
 from dmosopt_tpu_torch import storage
 from dmosopt_tpu_torch.config import as_tuple as _as_tuple, import_object_by_path
 from dmosopt_tpu_torch.datatypes import (
+    EvalRequest,
     OptProblem,
     ParameterSpace,
     StrategyState,
@@ -114,12 +122,13 @@ class _InflightBatch:
 # that means "not used"
 _UNPORTED_DEFAULTS = {
     "problem_ids": None, "feature_dtypes": None, "feature_class": None,
-    "dynamic_initial_sampling": None,
     "surrogate_custom_training": None, "optimize_mean_variance": False,
-    "sensitivity_method_name": None, "feasibility_method_name": None,
     "jax_objective": False, "evaluator": None, "mesh": None,
     "tenant_batching": False,
 }
+# keyword arguments of the reference's distwq `run()` that the JAX
+# package's `run()` accepts and ignores (dmosopt_tpu/driver.py:1600-1602)
+_LEGACY_RUN_KWARGS = ("spawn_workers", "nprocs_per_worker")
 
 
 def _is_default(value, default) -> bool:
@@ -141,6 +150,9 @@ class DistOptimizer:
         distance_metric=None, termination_conditions=None, time_limit=None,
         optimizer_name="nsga2", optimizer_kwargs=None,
         surrogate_method_name="gpr", surrogate_method_kwargs=None,
+        sensitivity_method_name=None, sensitivity_method_kwargs=None,
+        feasibility_method_name=None, feasibility_method_kwargs=None,
+        dynamic_initial_sampling=None, dynamic_initial_sampling_kwargs=None,
         surrogate_refit=None, telemetry=None,
         random_seed=None, local_random=None,
         file_path=None, save=False, save_eval=10,
@@ -160,7 +172,15 @@ class DistOptimizer:
           ``eval_timeout``, ``eval_retries``, ``on_eval_failure`` and
           ``torch_eval_chunks``.
         torch_objective: `obj_fun` maps a (B, n) float32 tensor of flat
-          parameter vectors on ``device`` to objectives (B, d).
+          parameter vectors on ``device`` to objectives (B, d), or to a
+          tuple (objectives, constraints (B, c)) with ``constraint_names``.
+        feasibility_method_name, sensitivity_method_name: registry names
+          (``"logreg"``; ``"fast"``, ``"dgsm"``) or import paths, with
+          their ``*_kwargs``.
+        dynamic_initial_sampling: import path of an epoch-0 sampler,
+          called with ``file_path``, ``iteration``, ``evaluated_samples``,
+          ``next_samples``, ``sampler`` and ``dynamic_initial_sampling_kwargs``;
+          the rows it returns are evaluated, until it returns None.
         device: where the surrogate, the inner EA and a torch objective
           run; None means CUDA (and raises without one).
         """
@@ -204,7 +224,13 @@ class DistOptimizer:
             reduce_fun=reduce_fun, reduce_fun_args=reduce_fun_args,
             constraint_names=constraint_names, metadata=metadata,
             save_eval=save_eval,
+            sensitivity_method_name=sensitivity_method_name,
+            feasibility_method_name=feasibility_method_name,
+            dynamic_initial_sampling=dynamic_initial_sampling,
         )
+        self.sensitivity_method_kwargs = sensitivity_method_kwargs or {}
+        self.feasibility_method_kwargs = feasibility_method_kwargs or {}
+        self.dynamic_initial_sampling_kwargs = dynamic_initial_sampling_kwargs or {}
         self.resample_fraction = min(float(resample_fraction), 1.0)
         self.surrogate_method_kwargs = surrogate_method_kwargs or {}
         self.optimizer_name = _as_tuple(optimizer_name)
@@ -262,11 +288,6 @@ class DistOptimizer:
         ).isdisjoint(problem_parameters.parameter_names):
             raise ValueError(
                 "problem_parameters and space must not share parameter names"
-            )
-        if torch_objective and self.constraint_names is not None:
-            raise NotImplementedError(
-                "DistOptimizer options not ported to dmosopt_tpu_torch: "
-                "['constraint_names with torch_objective']"
             )
         self.param_space = param_space
         self.param_names = param_space.parameter_names
@@ -416,6 +437,10 @@ class DistOptimizer:
             optimizer_kwargs=self.optimizer_kwargs,
             surrogate_method_name=self.surrogate_method_name,
             surrogate_method_kwargs=self.surrogate_method_kwargs,
+            sensitivity_method_name=self.sensitivity_method_name,
+            sensitivity_method_kwargs=self.sensitivity_method_kwargs,
+            feasibility_method_name=self.feasibility_method_name,
+            feasibility_method_kwargs=self.feasibility_method_kwargs,
             local_random=self.local_random, logger=self.logger,
             device=self.device,
         )
@@ -725,6 +750,44 @@ class DistOptimizer:
         self.pipeline_stats["eval_wait_s"] += time.perf_counter() - t_drain0
         return self.eval_count, self.saved_eval_count
 
+    def _drain_dynamic_initial_samples(self, distopt):
+        """Epoch-0 hook (``dmosopt_tpu/driver.py:1358-1390``): a
+        user-supplied sampler decides, round by round, whether the
+        initial design needs more evaluated points (e.g. to reach a
+        feasibility quota) before the first surrogate fit. Each round it
+        gets a fresh `xinit` design as its proposal; the rows it returns
+        are evaluated; None ends the rounds. The keyword names are the
+        reference's public sampler interface (dmosopt.py:1357-1402)."""
+        sampler_fn = import_object_by_path(self.dynamic_initial_sampling)
+        design = dict(
+            n_initial=self.n_initial,
+            maxiter=self.initial_maxiter,
+            method=self.initial_method,
+            param_names=distopt.prob.param_names,
+            xlb=distopt.prob.lb,
+            xub=distopt.prob.ub,
+        )
+        for round_idx in itertools.count():
+            proposal = opt.xinit(
+                self.n_initial, distopt.prob.param_names, distopt.prob.lb,
+                distopt.prob.ub, method=self.initial_method,
+                maxiter=self.initial_maxiter, nPrevious=None,
+                local_random=self.local_random, logger=self.logger,
+            )
+            batch = sampler_fn(
+                file_path=self.file_path,
+                iteration=round_idx,
+                evaluated_samples=distopt.completed,
+                next_samples=proposal,
+                sampler=design,
+                **self.dynamic_initial_sampling_kwargs,
+            )
+            if batch is None:
+                return
+            for row in np.atleast_2d(np.asarray(batch)):
+                distopt.append_request(EvalRequest(row, None, 0))
+            self._process_requests()
+
     def run_epoch(self, completed_epoch: bool = False):
         """One full epoch: drain the pending requests, then run the epoch
         state machine to completion (reference dmosopt.py:1341-1470).
@@ -740,6 +803,8 @@ class DistOptimizer:
         # the epoch-opening drain evaluates the previous epoch's resample
         # batch: the one place speculative mode may return at quorum
         self._process_requests(allow_quorum=True)
+        if self.dynamic_initial_sampling is not None and self.epoch_count == 0:
+            self._drain_dynamic_initial_samples(strat)
         strat.initialize_epoch(epoch)
         self.stats["init_sampling_end"] = time.time()
         done = completed_epoch
@@ -823,12 +888,28 @@ def dopt_init(dopt_params, verbose=False, initialize_strategy=False):
 
 
 def run(
-    dopt_params, time_limit=None, feasible=True, return_constraints=False,
-    verbose=True, device=None, **kwargs,
+    dopt_params, time_limit=None, feasible=True, return_features=False,
+    return_constraints=False, verbose=True, compile_cache_dir=None,
+    device=None, **kwargs,
 ):
     """Run a complete MO-ASMO optimization (reference
     dmosopt/dmosopt.py:2501-2571) and return the best evaluations.
-    ``device`` (or ``dopt_params["device"]``) None means CUDA."""
+    ``device`` (or ``dopt_params["device"]``) None means CUDA.
+
+    ``compile_cache_dir`` is accepted and does nothing: the JAX package
+    keeps XLA's compiled programs there, and the port compiles no
+    programs (its Triton kernels cache themselves under
+    ``dmosopt_tpu_torch/_build``). ``return_features=True`` raises
+    `NotImplementedError`: features are not ported. The reference's
+    distwq keyword arguments (``_LEGACY_RUN_KWARGS``) are ignored, as the
+    JAX package ignores them; any other keyword raises `TypeError`."""
+    unknown = sorted(k for k in kwargs if k not in _LEGACY_RUN_KWARGS)
+    if unknown:
+        raise TypeError(f"run() got unexpected keyword arguments {unknown}")
+    if return_features:
+        raise NotImplementedError(
+            "run(return_features=True): features are not ported to dmosopt_tpu_torch"
+        )
     dopt_params = dict(dopt_params)
     if time_limit is not None:
         dopt_params["time_limit"] = time_limit

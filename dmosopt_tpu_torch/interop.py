@@ -1,7 +1,7 @@
 """State carried across from the JAX package, as plain numpy.
 
 Builds the port's GP fit, NSGA-II, AGE-MOEA, MO-CMA-ES, SMPSO and TRS
-states from dicts of numpy arrays,
+states and a fitted feasibility model from dicts of numpy arrays,
 e.g. ``{k: np.asarray(v) for k, v in fit._asdict().items()}`` of a JAX
 `GPFit` or `NSGA2State`, so the same numbers can go through both
 packages. Only numpy crosses the boundary; nothing here imports JAX.
@@ -12,6 +12,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from dmosopt_tpu_torch.feasibility import LogisticFeasibilityModel
 from dmosopt_tpu_torch.models.gp import GPFit
 from dmosopt_tpu_torch.optimizers.agemoea import AGEMOEAState
 from dmosopt_tpu_torch.optimizers.cmaes import CMAESState
@@ -91,3 +92,12 @@ def trs_state_from_arrays(d: dict, device) -> TRSState:
         out[k] = out[k].to(torch.int32)
     out["restart"] = out["restart"].to(torch.bool)
     return TRSState(**out)
+
+
+def feasibility_from_arrays(d: dict, device) -> LogisticFeasibilityModel:
+    """A fitted `LogisticFeasibilityModel` on ``device`` from the JAX
+    model's ``x_mean``, ``x_std``, ``rotation``, ``_W`` and ``_b``."""
+    return LogisticFeasibilityModel.from_parameters(
+        np.asarray(d["x_mean"]), np.asarray(d["x_std"]), np.asarray(d["rotation"]),
+        np.asarray(d["_W"]), np.asarray(d["_b"]), device=device,
+    )

@@ -1,7 +1,10 @@
 """MO-ASMO epoch engine.
 
 Port of ``dmosopt_tpu/moasmo.py`` (`xinit`, `train`, `optimize` with both
-branches, `_optimize_on_device` with termination criteria, `epoch`, `get_best`, `get_duplicates`, `remove_duplicates`), after
+branches, `_optimize_on_device` with termination criteria,
+`analyze_sensitivity`, `epoch` with its feasibility and sensitivity
+models, `get_best`, `get_feasible`, `epsilon_get_best`,
+`get_duplicates`, `remove_duplicates`), after
 reference `dmosopt/MOASMO.py`: initial design -> surrogate fit -> inner
 EA against the surrogate -> crowding-distance resample selection.
 
@@ -14,9 +17,9 @@ yields to the caller per generation, because there the host evaluates.
 A termination criterion is checked on the host every
 ``termination_check_interval`` generations, as in the JAX package.
 Epochs are still driven through the reference's suspended-generator
-protocol (MOASMO.py:248,422). The JAX engine's feasibility and
-sensitivity models, custom training, mean-variance optimization,
-surrogate refit, meshes and telemetry are not ported.
+protocol (MOASMO.py:248,422). The JAX engine's custom training,
+mean-variance optimization, surrogate refit, meshes and telemetry are
+not ported.
 """
 
 from __future__ import annotations
@@ -29,7 +32,9 @@ import numpy as np
 import torch
 
 from dmosopt_tpu_torch.config import (
+    default_feasibility_methods,
     default_optimizers,
+    default_sa_methods,
     default_sampling_methods,
     default_surrogate_methods,
     resolve,
@@ -37,6 +42,7 @@ from dmosopt_tpu_torch.config import (
 from dmosopt_tpu_torch.datatypes import EpochResults, OptHistory
 from dmosopt_tpu_torch.models import Model
 from dmosopt_tpu_torch.ops import crowding_distance, sort_mo
+from dmosopt_tpu_torch.utils.device import resolve_device
 from dmosopt_tpu_torch.utils.prng import as_torch_generator
 
 
@@ -44,7 +50,7 @@ from dmosopt_tpu_torch.utils.prng import as_torch_generator
 
 
 def get_duplicates(X, Y=None, eps: float = 1e-16, block=None,
-                   device="cpu") -> np.ndarray:
+                   device=None) -> np.ndarray:
     """Mark rows of X that duplicate a row of X (Y=None) or of Y, with
     reference dmosopt/MOEA.py:426-437 semantics, as the JAX package has
     them (``dmosopt_tpu/moasmo.py:56-72``): the upper triangle of the
@@ -56,8 +62,9 @@ def get_duplicates(X, Y=None, eps: float = 1e-16, block=None,
     only the columns below them, with the same exact float64 differences
     summed over the columns in order, so no (N, M) array exists. The
     blocks run on ``device``, the run's device (an archive of 45 056 rows
-    is about 10^9 distances); the result comes back as a numpy bool
-    array."""
+    is about 10^9 distances; None means CUDA); the result comes back as a
+    numpy bool array."""
+    device = resolve_device(device)
     X = torch.as_tensor(np.asarray(X, dtype=np.float64), device=device)
     Y = X if Y is None else torch.as_tensor(np.asarray(Y, dtype=np.float64), device=device)
     nx, ny = X.shape[0], Y.shape[0]
@@ -79,7 +86,7 @@ def get_duplicates(X, Y=None, eps: float = 1e-16, block=None,
     return dup.cpu().numpy()
 
 
-def remove_duplicates(x, y, eps: float = 1e-16, device="cpu"):
+def remove_duplicates(x, y, eps: float = 1e-16, device=None):
     """Drop duplicate parameter rows (reference dmosopt/MOEA.py:439-443)."""
     dup = get_duplicates(x, eps=eps, device=device)
     return x[~dup], y[~dup]
@@ -448,7 +455,7 @@ def train(
             logger.info(f"Found {len(feasible)} feasible solutions")
         else:
             logger.info(f"Found {len(x)} solutions")
-    x, y = remove_duplicates(x, y, device=device or "cpu")
+    x, y = remove_duplicates(x, y, device=device)
 
     kwargs = dict(surrogate_method_kwargs or {})
     threshold = kwargs.pop("large_n_threshold", LARGE_N_THRESHOLD)
@@ -464,6 +471,51 @@ def train(
         return_mean_variance=surrogate_return_mean_variance,
         device=device,
     )
+
+
+# -------------------------------------------------------------- sensitivity
+
+
+def analyze_sensitivity(
+    sm,
+    xlb, xub,
+    param_names, objective_names,
+    sensitivity_method_name=None,
+    sensitivity_method_kwargs: Optional[Dict[str, Any]] = None,
+    di_min: float = 1.0,
+    di_max: float = 20.0,
+    logger=None,
+):
+    """Map first-order sensitivity indices of the surrogate to per-gene
+    distribution indices (reference: dmosopt/MOASMO.py:535-578;
+    ``dmosopt_tpu/moasmo.py:962-996``)."""
+    di_mutation = None
+    di_crossover = None
+    if sensitivity_method_name is not None:
+        sens_cls = resolve(sensitivity_method_name, default_sa_methods)
+        sens = sens_cls(
+            xlb, xub, param_names, objective_names,
+            **(sensitivity_method_kwargs or {}),
+        )
+        sens_results = sens.analyze(sm)
+        S1s = np.vstack(
+            [sens_results["S1"][objective_name] for objective_name in objective_names]
+        )
+        S1s = np.nan_to_num(S1s, copy=False)
+        S1max = np.max(S1s, axis=0)
+        S1nmax = S1max / np.max(S1max)
+        di_mutation = np.clip(S1nmax * di_max, di_min, None)
+        di_crossover = np.clip(S1nmax * di_max, di_min, None)
+
+    if logger is not None:
+        logger.info(f"analyze_sensitivity: di_mutation = {di_mutation}")
+        logger.info(f"analyze_sensitivity: di_crossover = {di_crossover}")
+    return {"di_mutation": di_mutation, "di_crossover": di_crossover}
+
+
+def _synchronize(device):
+    if device is not None and torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
 
 
 # -------------------------------------------------------------------- epoch
@@ -484,6 +536,10 @@ def epoch(
     optimizer_kwargs: Optional[Dict[str, Any]] = None,
     surrogate_method_name="gpr",
     surrogate_method_kwargs: Optional[Dict[str, Any]] = None,
+    sensitivity_method_name=None,
+    sensitivity_method_kwargs: Optional[Dict[str, Any]] = None,
+    feasibility_method_name=None,
+    feasibility_method_kwargs: Optional[Dict[str, Any]] = None,
     termination=None,
     local_random=None,
     logger=None,
@@ -502,9 +558,18 @@ def epoch(
     seconds of the inner EA (``optimize_s``, over ``n_generations``
     generations) and, with a ``termination`` criterion, the reasons it
     gave (``stop_reasons``), its checks and the wall seconds spent in
-    them (`_optimize_on_device`). The JAX engine's feasibility,
-    sensitivity, custom-training, refit and mean-variance options are
-    not ported.
+    them (`_optimize_on_device`).
+
+    With ``feasibility_method_name`` and constraints ``C`` a feasibility
+    model is fitted on all rows (``feasibility_s``, its summary under
+    ``feasibility``) and handed to the optimizer, whose survival orders
+    each front by its `rank`; a fit that raises on its data is logged
+    and the epoch goes on without one, as in the JAX package. With
+    ``sensitivity_method_name`` the surrogate's sensitivity indices set
+    the optimizer's per-gene ``di_mutation`` and ``di_crossover``
+    (``sensitivity_s``, the vectors under ``di_mutation`` and
+    ``di_crossover``). The JAX engine's custom-training, refit and
+    mean-variance options are not ported.
     """
     nInput = len(param_names)
     nOutput = len(objective_names)
@@ -521,6 +586,24 @@ def epoch(
 
     optimizer_cls = resolve(optimizer_name, default_optimizers)
     mdl = Model()
+    if feasibility_method_name is not None and C is not None:
+        t0 = time.perf_counter()
+        try:
+            if logger is not None:
+                logger.info("Constructing feasibility model...")
+            feasibility_cls = resolve(
+                feasibility_method_name, default_feasibility_methods
+            )
+            mdl.feasibility = feasibility_cls(
+                x_0, np.asarray(C), device=device,
+                **(feasibility_method_kwargs or {}),
+            )
+        except Exception as e:
+            if logger is not None:
+                logger.warning(f"Unable to fit feasibility model: {e}")
+        _synchronize(device)
+        stats["feasibility_s"] = time.perf_counter() - t0
+
     if surrogate_method_name is not None:
         t0 = time.perf_counter()
         mdl.objective = train(
@@ -529,10 +612,20 @@ def epoch(
             surrogate_method_kwargs=surrogate_method_kwargs,
             logger=logger, device=device,
         )
-        if device is not None and torch.device(device).type == "cuda":
-            torch.cuda.synchronize()
+        _synchronize(device)
         stats["train_s"] = time.perf_counter() - t0
-        stats.update(mdl.get_stats())
+
+    di_dict = {}
+    if sensitivity_method_name is not None:
+        t0 = time.perf_counter()
+        di_dict = analyze_sensitivity(
+            mdl.objective, xlb, xub, param_names, objective_names,
+            sensitivity_method_name=sensitivity_method_name,
+            sensitivity_method_kwargs=sensitivity_method_kwargs,
+            logger=logger,
+        )
+        stats["sensitivity_s"] = time.perf_counter() - t0
+    stats.update(mdl.get_stats())
 
     optimizer_kwargs_: Dict[str, Any] = {
         "sampling_method": "slh",
@@ -540,6 +633,11 @@ def epoch(
         "nchildren": 1,
     }
     optimizer_kwargs_.update(optimizer_kwargs or {})
+
+    for key in ("di_mutation", "di_crossover"):
+        if di_dict.get(key) is not None:
+            optimizer_kwargs_[key] = di_dict[key]
+            stats[key] = np.asarray(di_dict[key])
 
     optimizer = optimizer_cls(
         nInput=nInput, nOutput=nOutput, popsize=pop, model=mdl,
@@ -584,7 +682,7 @@ def epoch(
     if mdl.objective is not None:
         # dedupe resample candidates against already-evaluated points
         # (reference MOASMO.py:441-448)
-        is_duplicate = get_duplicates(best_x, x_0, device=device or "cpu")
+        is_duplicate = get_duplicates(best_x, x_0, device=device)
         best_x = best_x[~is_duplicate]
         best_y = best_y[~is_duplicate]
         D = _to_np(crowding_distance(torch.as_tensor(best_y)))
@@ -612,11 +710,12 @@ def get_best(
     return_perm: bool = False,
     return_feasible: bool = False,
     delete_duplicates: bool = True,
-    device="cpu",
+    device=None,
 ):
     """Extract the non-dominated (rank-0) subset of evaluated points
     (reference: dmosopt/MOASMO.py:581-639): numpy in and out, the dedupe
-    and the sort on ``device``."""
+    and the sort on ``device`` (None means CUDA)."""
+    device = resolve_device(device)
     xtmp = np.asarray(x)
     ytmp = np.asarray(y)
     f = np.asarray(f) if f is not None else None
@@ -652,3 +751,127 @@ def get_best(
         return best_x, best_y, best_f, best_c, best_epoch, out_perm, feasible_idx
     return best_x, best_y, best_f, best_c, best_epoch, out_perm
 
+
+
+def get_feasible(x, y, f, c, nInput: int, nOutput: int, epochs=None, device=None):
+    """Group evaluated points by (rank, epoch) over the feasible subset
+    (reference: dmosopt/MOASMO.py:642-700; ``dmosopt_tpu/moasmo.py:1324``):
+    numpy in and out, the sort on ``device`` (None means CUDA)."""
+    device = resolve_device(device)
+    xtmp = np.asarray(x).copy()
+    ytmp = np.asarray(y).copy()
+    f = np.asarray(f) if f is not None else None
+    c = np.asarray(c) if c is not None else None
+    epochs = np.asarray(epochs) if epochs is not None else None
+
+    feasible, (xtmp, ytmp, f, epochs, c) = _feasible_subset(
+        c, xtmp, ytmp, f, epochs, c
+    )
+
+    perm_x, perm_y, rank, _, perm = sort_mo(
+        torch.as_tensor(xtmp, device=device), torch.as_tensor(ytmp, device=device)
+    )
+    perm_x, perm_y, rank, perm = _to_np(perm_x), _to_np(perm_y), _to_np(rank), _to_np(perm)
+    perm_f = f[perm] if f is not None else None
+    perm_epoch = epochs[perm] if epochs is not None else None
+
+    uniq_rank, rnk_inv, rnk_cnt = np.unique(
+        rank, return_inverse=True, return_counts=True
+    )
+    rank_idx = np.empty((len(uniq_rank),), dtype=object)
+    for i in range(len(uniq_rank)):
+        rank_idx[i] = np.flatnonzero(rnk_inv == i)
+
+    if perm_epoch is not None:
+        uniq_epc, epc_inv, epc_cnt = np.unique(
+            perm_epoch, return_inverse=True, return_counts=True
+        )
+    else:
+        uniq_epc = np.zeros((1,), dtype=np.int64)
+        epc_inv = np.zeros((len(rank),), dtype=np.int64)
+        epc_cnt = np.array([len(rank)])
+    epc_idx = np.empty((len(uniq_epc),), dtype=object)
+    for i in range(len(uniq_epc)):
+        epc_idx[i] = np.flatnonzero(epc_inv == i)
+
+    rnk_epc_idx = np.empty((len(uniq_rank), len(uniq_epc)), dtype=object)
+    for i in range(len(uniq_rank)):
+        for j in range(len(uniq_epc)):
+            rnk_epc_idx[i, j] = np.intersect1d(
+                rank_idx[i], epc_idx[j], assume_unique=True
+            )
+
+    perm_arrs = (perm_x, perm_y, perm_f, perm_epoch, perm, feasible)
+    rnk_arrs = (uniq_rank, rank_idx, rnk_cnt)
+    epc_arrs = (uniq_epc, epc_idx, epc_cnt)
+    return perm_arrs, rnk_arrs, epc_arrs, rnk_epc_idx
+
+
+def epsilon_get_best(
+    x,
+    y,
+    f,
+    c,
+    feasible: bool = True,
+    delete_duplicates: bool = True,
+    epsilons=None,
+    device=None,
+):
+    """Epsilon-box non-dominated subset (reference: dmosopt/MOASMO.py:703-758;
+    ``dmosopt_tpu/moasmo.py:1380``), numpy on the host as in the JAX
+    package, the dedupe on ``device`` (None means CUDA): points are
+    quantized to epsilon boxes, box-level Pareto dominance is one
+    pairwise comparison, and a surviving box keeps the point closest to
+    its corner."""
+    x = np.asarray(x)
+    y = np.asarray(y)
+    f = np.asarray(f) if f is not None else None
+    c = np.asarray(c) if c is not None else None
+
+    if feasible and c is not None:
+        _, (x, y, f, c) = _feasible_subset(c, x, y, f, c)
+
+    if delete_duplicates:
+        dup = get_duplicates(y, device=device)
+        x, y = x[~dup], y[~dup]
+        if f is not None:
+            f = f[~dup]
+        if c is not None:
+            c = c[~dup]
+
+    if epsilons is None:
+        eps = np.full((y.shape[1],), 1e-9)
+    elif isinstance(epsilons, str) and epsilons == "auto":
+        from scipy import stats as _sstats
+
+        eps = 0.05 * _sstats.iqr(y, axis=0)
+    elif isinstance(epsilons, (int, float)):
+        eps = np.full((y.shape[1],), float(epsilons))
+    else:
+        eps = np.asarray(epsilons, dtype=float)
+    eps = np.where((eps == 0) | np.isnan(eps), 1e-8, eps)
+
+    if y.shape[0] == 0:
+        return x, y, f, c, eps
+
+    yn = np.nan_to_num(y)
+    boxes = np.floor(yn / eps)  # (N, d) epsilon-box coordinates
+
+    # collapse to unique boxes, then Pareto-compare boxes: box b dominates
+    # b' if <= in all coordinates and < in at least one
+    uniq, inv = np.unique(boxes, axis=0, return_inverse=True)  # (B, d)
+    inv = inv.reshape(-1)
+    le = np.all(uniq[:, None, :] <= uniq[None, :, :], axis=2)
+    lt = np.any(uniq[:, None, :] < uniq[None, :, :], axis=2)
+    box_keep = ~np.any(le & lt, axis=0)  # (B,)
+
+    # representative per surviving box: the point closest to the box
+    # corner, lowest index breaking ties (archive-insertion semantics)
+    corner_dist = np.sum((yn - boxes * eps) ** 2, axis=1)
+    order = np.lexsort((np.arange(len(yn)), corner_dist))
+    _, first = np.unique(inv[order], return_index=True)
+    rep = order[first]  # representative point index per unique box
+    m = np.sort(rep[box_keep[inv[rep]]])
+    best_f = f[m] if f is not None else None
+    best_c = c[m] if c is not None else None
+    return x[m], y[m], best_f, best_c, eps

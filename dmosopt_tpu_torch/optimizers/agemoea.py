@@ -319,9 +319,8 @@ class AGEMOEA(MOEA):
         )
         if optimize_mean_variance:
             raise NotImplementedError("optimize_mean_variance is not ported")
-        if getattr(model, "feasibility", None) is not None:
-            raise NotImplementedError("feasibility models are not ported")
         self.model = model
+        self.feasibility = getattr(model, "feasibility", None)
         if self.opt_params.mutation_rate is None:
             self.opt_params.mutation_rate = 1.0 / float(nInput)
         self.opt_params.poolsize = int(round(self.popsize / 2.0))
@@ -368,11 +367,20 @@ class AGEMOEA(MOEA):
             ))
         return self._consts[1]
 
+    def _x_keys(self, x):
+        """The feasibility rank as the within-front key before crowding
+        (reference ``dmosopt_tpu/optimizers/agemoea.py:302-305``)."""
+        if self.feasibility is None:
+            return None
+        return [self.feasibility.rank(x)]
+
     # ------------------------------------------------------ state functions
 
     def initialize_state(self, generator, x, y, bounds, mask=None) -> AGEMOEAState:
         P = self.capacity
-        perm, rank, crowd = environmental_selection(x, y, P, mask=mask)
+        perm, rank, crowd = environmental_selection(
+            x, y, P, x_keys=self._x_keys(x), mask=mask
+        )
         keep = perm[:P]
         return AGEMOEAState(
             population_parm=x[keep],
@@ -430,7 +438,9 @@ class AGEMOEA(MOEA):
                 torch.arange(P, device=dev) < state.n_active,
                 torch.ones(x_gen.shape[0], dtype=torch.bool, device=dev),
             ])
-        perm, rank, crowd = environmental_selection(x, y, P, mask=mask)
+        perm, rank, crowd = environmental_selection(
+            x, y, P, x_keys=self._x_keys(x), mask=mask
+        )
         keep = perm[:P]
         state = state._replace(
             population_parm=x[keep],

@@ -104,8 +104,8 @@ class CMAES(MOEA):
         )
         if optimize_mean_variance:
             raise NotImplementedError("optimize_mean_variance is not ported")
-        if getattr(model, "feasibility", None) is not None:
-            raise NotImplementedError("feasibility models are not ported")
+        # a feasibility model is accepted and not used: the JAX package's
+        # survival orders by rank only (dmosopt_tpu/optimizers/cmaes.py:100-118)
         self.model = model
         di_mutation = self.opt_params.di_mutation
         if np.isscalar(di_mutation):

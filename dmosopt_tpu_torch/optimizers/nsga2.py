@@ -74,8 +74,11 @@ class NSGA2(MOEA):
         self.distance_metric = distance_metric
         self.y_distance_metrics = [distance_metric] if distance_metric else None
         self.x_distance_metrics = None
-        if getattr(model, "feasibility", None) is not None:
-            raise NotImplementedError("feasibility models are not ported")
+        feasibility = getattr(model, "feasibility", None)
+        if feasibility is not None:
+            # each front ordered by mean feasible probability (reference
+            # ``dmosopt_tpu/optimizers/nsga2.py:75-77``)
+            self.x_distance_metrics = [feasibility.rank]
         if self.opt_params.mutation_rate is None:
             self.opt_params.mutation_rate = 1.0 / float(nInput)
         self.opt_params.poolsize = int(round(self.popsize / 2.0))

@@ -99,10 +99,14 @@ class SMPSO(MOEA):
         )
         if optimize_mean_variance:
             raise NotImplementedError("optimize_mean_variance is not ported")
-        if getattr(model, "feasibility", None) is not None:
-            raise NotImplementedError("feasibility models are not ported")
         self.model = model
         self.y_distance_metrics = [distance_metric] if distance_metric else None
+        self.x_distance_metrics = None
+        feasibility = getattr(model, "feasibility", None)
+        if feasibility is not None:
+            # reference ``dmosopt_tpu/optimizers/smpso.py:66-69``; `rank`
+            # takes the swarms as a leading batch axis
+            self.x_distance_metrics = [feasibility.rank]
         if self.opt_params.mutation_rate is None:
             self.opt_params.mutation_rate = 1.0 / float(nInput)
         if self.opt_params.adaptive_population_size:
@@ -138,7 +142,10 @@ class SMPSO(MOEA):
     # ------------------------------------------------------ state functions
 
     def _sort(self, x, y, need=None):
-        return sort_mo(x, y, y_distance_metrics=self.y_distance_metrics, need=need)
+        return sort_mo(
+            x, y, x_distance_metrics=self.x_distance_metrics,
+            y_distance_metrics=self.y_distance_metrics, need=need,
+        )
 
     def initialize_state(self, generator, x, y, bounds, mask=None) -> SMPSOState:
         S, P, n = self.swarm_size, self.popsize, self.nInput

@@ -379,7 +379,8 @@ class _TorchEvalHandle(AsyncEvalHandle):
 
     def __init__(self, total: int, chunks: List[Tuple[List[int], Any, Any, float]]):
         super().__init__(total)
-        # [(batch indices, host objectives, CUDA event or None, t_submit)]
+        # [(batch indices, host outputs (a tuple), CUDA event or None,
+        #   t_submit)]
         self._chunks = list(chunks)
         self._buffer: List[Tuple[int, Dict]] = []
 
@@ -388,11 +389,11 @@ class _TorchEvalHandle(AsyncEvalHandle):
         return event is None or event.query()
 
     def _open_chunk(self):
-        indices, host_y, _event, t_submit = self._chunks.pop(0)
+        indices, host_outs, _event, t_submit = self._chunks.pop(0)
         self.t_landed = time.perf_counter()
-        y = host_y.numpy()
         dt = (time.time() - t_submit) / max(self.total, 1)
-        self._buffer = [(i, {0: row, "time": dt}) for i, row in zip(indices, y)]
+        rows = _split_rows(tuple(h.numpy() for h in host_outs))
+        self._buffer = [(i, {0: row, "time": dt}) for i, row in zip(indices, rows)]
 
     def poll(self, timeout: Optional[float] = None):
         """Next result of the first unfinished chunk. A chunk whose event
@@ -432,20 +433,35 @@ class _TorchEvalHandle(AsyncEvalHandle):
         return out
 
 
+def _split_rows(outs):
+    """Per-row results of a batch's host outputs: the objective row, or
+    the tuple of each output's row (the ``(y, c)`` protocol)."""
+    if len(outs) == 1:
+        return list(outs[0])
+    return [tuple(o[j] for o in outs) for j in range(outs[0].shape[0])]
+
+
 class TorchBatchEvaluator:
     """Evaluate a batched torch objective, one call per batch or chunk
     (one problem, id 0).
 
     ``batch_fun`` maps a (B, n) float32 tensor of flat parameter vectors
-    on ``device`` to objectives (B, d) on any device."""
+    on ``device`` to objectives (B, d) on any device, or to a tuple of
+    per-row outputs, objectives first (``(y, c)`` when the problem has
+    constraints), as the JAX package's batch evaluator takes
+    (``dmosopt_tpu/parallel/evaluator.py:554-575``): each output is
+    copied to the host and split per row."""
 
     def __init__(self, batch_fun: Callable, device):
         self.batch_fun = batch_fun
         self.device = torch.device(device)
 
-    def _launch(self, X: np.ndarray) -> torch.Tensor:
+    def _launch(self, X: np.ndarray) -> Tuple[torch.Tensor, ...]:
         x = torch.as_tensor(X, dtype=torch.float32, device=self.device)
-        return self.batch_fun(x).detach()
+        out = self.batch_fun(x)
+        if not isinstance(out, tuple):
+            out = (out,)
+        return tuple(torch.as_tensor(o).detach() for o in out)
 
     def evaluate_batch(
         self, space_vals_list: Sequence[Dict[Any, np.ndarray]]
@@ -453,10 +469,10 @@ class TorchBatchEvaluator:
         if not space_vals_list:
             return []
         t0 = time.time()
-        Y = self._launch(np.stack([sv[0] for sv in space_vals_list]))
-        Y = Y.cpu().numpy()
+        outs = self._launch(np.stack([sv[0] for sv in space_vals_list]))
+        rows = _split_rows(tuple(o.cpu().numpy() for o in outs))
         dt = (time.time() - t0) / len(space_vals_list)
-        return [{0: y, "time": dt} for y in Y]
+        return [{0: row, "time": dt} for row in rows]
 
     def submit_batch(
         self, space_vals_list: Sequence[Dict[Any, np.ndarray]],
@@ -477,15 +493,19 @@ class TorchBatchEvaluator:
         chunks = []
         for start in range(0, B, chunk_len):
             part = rounds[start:start + chunk_len]
-            y = self._launch(np.stack([sv[0] for sv in part]))
+            outs = self._launch(np.stack([sv[0] for sv in part]))
             event = None
-            if y.is_cuda:
-                host = torch.empty(y.shape, dtype=y.dtype, pin_memory=True)
-                host.copy_(y, non_blocking=True)
+            if any(o.is_cuda for o in outs):
+                host = []
+                for o in outs:
+                    h = torch.empty(o.shape, dtype=o.dtype, pin_memory=True)
+                    h.copy_(o, non_blocking=True)
+                    host.append(h)
+                host = tuple(host)
                 event = torch.cuda.Event()
                 event.record()
             else:
-                host = y.clone()
+                host = tuple(o.clone() for o in outs)
             chunks.append(
                 (list(range(start, start + len(part))), host, event, t_submit)
             )

@@ -14,6 +14,7 @@ package filters the same way, lazily, before any new row is folded).
 ``termination_conditions`` builds the epoch's stopping criterion as
 the JAX package does (`_build_termination`); one criterion object
 serves every epoch of the run, so its windows carry across epochs. The
+feasibility and sensitivity methods pass through to each epoch. The
 refit controller and features are not ported; the driver rejects them.
 """
 
@@ -67,6 +68,10 @@ class DistOptStrategy:
         optimizer_kwargs=None,
         surrogate_method_name: Optional[str] = "gpr",
         surrogate_method_kwargs: Optional[Dict] = None,
+        sensitivity_method_name: Optional[str] = None,
+        sensitivity_method_kwargs: Optional[Dict] = None,
+        feasibility_method_name=None,
+        feasibility_method_kwargs: Optional[Dict] = None,
         local_random=None, logger=None, device=None,
     ):
         self.__dict__.update(
@@ -75,12 +80,16 @@ class DistOptStrategy:
             logger=logger,
             device=device,
             surrogate_method_name=surrogate_method_name,
+            sensitivity_method_name=sensitivity_method_name,
+            feasibility_method_name=feasibility_method_name,
             distance_metric=distance_metric,
             resample_fraction=resample_fraction,
             num_generations=num_generations,
             population_size=population_size,
         )
         self.surrogate_method_kwargs = surrogate_method_kwargs or {}
+        self.sensitivity_method_kwargs = sensitivity_method_kwargs or {}
+        self.feasibility_method_kwargs = feasibility_method_kwargs or {}
         self.optimizer_name = as_tuple(optimizer_name)
         self.optimizer_kwargs = as_tuple(
             optimizer_kwargs
@@ -170,7 +179,7 @@ class DistOptStrategy:
     # ----------------------------------------------------- archive upkeep
 
     def _remove_duplicate_evals(self):
-        is_duplicate = get_duplicates(self.x, device=self.device or "cpu")
+        is_duplicate = get_duplicates(self.x, device=self.device)
         self.x = self.x[~is_duplicate]
         self.y = self.y[~is_duplicate]
         if self.c is not None:
@@ -180,7 +189,7 @@ class DistOptStrategy:
         """Trim the archive to the best `population_size` points
         (reference dmosopt.py:219-229), ranked on the run's device."""
         self._remove_duplicate_evals()
-        dev = self.device or "cpu"
+        dev = self.device
         perm, _, _ = order_mo(
             torch.as_tensor(self.x, device=dev), torch.as_tensor(self.y, device=dev),
             need=self.population_size,
@@ -253,6 +262,10 @@ class DistOptStrategy:
             optimizer_name=name, optimizer_kwargs=okw,
             surrogate_method_name=self.surrogate_method_name,
             surrogate_method_kwargs=self.surrogate_method_kwargs,
+            sensitivity_method_name=self.sensitivity_method_name,
+            sensitivity_method_kwargs=self.sensitivity_method_kwargs,
+            feasibility_method_name=self.feasibility_method_name,
+            feasibility_method_kwargs=self.feasibility_method_kwargs,
             termination=self.termination,
             local_random=self.local_random, logger=self.logger,
             device=self.device,
@@ -327,7 +340,7 @@ class DistOptStrategy:
         bestx, besty, _, bestc, _, _ = opt.get_best(
             self.x, self.y, None, self.c,
             self.prob.dim, self.prob.n_objectives, feasible=feasible,
-            device=self.device or "cpu",
+            device=self.device,
         )
         return bestx, besty, bestc
 

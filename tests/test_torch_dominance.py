@@ -187,5 +187,7 @@ def test_blocked_get_duplicates_equals_jax(block):
     Y[5], Y[60] = X[70], X[20]
     for a, b in ((X, None), (X, Y), (Y, X)):
         want = jax_dups(a, b)
-        np.testing.assert_array_equal(get_duplicates(a, b, block=block), want)
+        np.testing.assert_array_equal(
+            get_duplicates(a, b, block=block, device="cpu"), want
+        )
     assert jax_dups(X).sum() == 4

@@ -318,3 +318,139 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     )
     assert out.returncode == 0, out.stderr
     assert int(out.stdout.strip()) == len(modules) >= 20
+
+
+_quota_calls = []
+
+
+def _quota_sampler(file_path, iteration, evaluated_samples, next_samples,
+                   sampler, quota=12, **_):
+    """tests/test_driver.py's round-by-round epoch-0 sampler: 4-point
+    batches of the proposal until `quota` evaluations exist."""
+    _quota_calls.append(iteration)
+    if len(evaluated_samples) >= quota:
+        return None
+    return np.asarray(next_samples)[:4]
+
+
+def test_dynamic_initial_sampling():
+    """The epoch-0 hook drives extra evaluation rounds until it returns
+    None (tests/test_driver.py::test_dynamic_initial_sampling)."""
+    _quota_calls.clear()
+    quota = 18
+    best = dmosopt_tpu_torch.run(_params(
+        opt_id="dyninit",
+        dynamic_initial_sampling=f"{__name__}._quota_sampler",
+        dynamic_initial_sampling_kwargs={"quota": quota},
+        population_size=16, num_generations=5,
+        surrogate_method_kwargs={"n_starts": 2, "n_iter": 20, "seed": 0},
+        n_initial=2, n_epochs=2, random_seed=14,
+    ), device="cpu", verbose=False)
+    strat = dopt_dict["dyninit"].optimizer_dict[0]
+    assert len(_quota_calls) >= 2  # at least one extra round ran
+    assert strat.x.shape[0] >= quota  # archive holds the quota'd evals
+    assert np.all(np.isfinite(np.column_stack([v for _, v in best[1]])))
+
+
+def test_run_with_sensitivity_analysis():
+    """sensitivity_method_name through run() (tests/test_driver.py's
+    case): the indices reach each epoch's optimizer as per-gene vectors."""
+    best = dmosopt_tpu_torch.run(_params(
+        opt_id="sa_run", sensitivity_method_name="dgsm",
+        population_size=16, num_generations=5,
+        surrogate_method_kwargs={"n_starts": 2, "n_iter": 15, "seed": 0},
+        n_initial=2, n_epochs=2, random_seed=3,
+    ), device="cpu", verbose=False)
+    assert np.all(np.isfinite(np.column_stack([v for _, v in best[1]])))
+    for s in dopt_dict["sa_run"].epoch_stats:
+        di = s["di_mutation"]
+        assert di.shape == (N_DIM,) and di.max() == pytest.approx(20.0) and di.min() >= 1.0
+
+
+def test_run_torch_objective_with_constraints():
+    """torch_objective=True with constraints (tests/test_driver.py's
+    jax-objective case): the batched evaluator takes the (y, c) tuple and
+    a feasibility model is fitted every epoch."""
+
+    def obj_c(X):
+        y = torch.stack([X[:, 0], 1.0 - X[:, 0] + torch.sum(X[:, 1:] ** 2, dim=1)], dim=1)
+        return y, X[:, :1] - 0.1  # feasible iff x0 > 0.1
+
+    for pipeline in ("serial", "overlap_io"):
+        best = dmosopt_tpu_torch.run(_params(
+            opt_id="torch_c", obj_fun=obj_c, torch_objective=True,
+            constraint_names=["c1"], feasibility_method_name="logreg",
+            population_size=16, num_generations=5,
+            surrogate_method_kwargs={"n_starts": 2, "n_iter": 15, "seed": 0},
+            n_initial=2, n_epochs=2, random_seed=3, pipeline=pipeline,
+        ), device="cpu", verbose=False, return_constraints=True)
+        dopt = dopt_dict["torch_c"]
+        strat = dopt.optimizer_dict[0]
+        assert strat.c is not None and strat.c.shape == (strat.x.shape[0], 1)
+        np.testing.assert_allclose(strat.c[:, 0], strat.x[:, 0] - 0.1, rtol=1e-6)
+        assert np.all(np.isfinite(np.column_stack([v for _, v in best[1]])))
+        assert np.all(dict(best[2])["c1"] > 0)
+        assert all(s["feasibility"]["n_fitted"] == 1 for s in dopt.epoch_stats)
+
+
+def _tnk(pp):
+    x1, x2 = pp["x1"], pp["x2"]
+    c1 = x1**2 + x2**2 - 1.0 - 0.1 * np.cos(16.0 * np.arctan2(x1, x2 + 1e-12))
+    c2 = 0.5 - (x1 - 0.5) ** 2 - (x2 - 0.5) ** 2
+    return np.array([x1, x2]), np.array([c1, c2])
+
+
+def test_run_tnk_with_logreg_returns_feasible_points():
+    """examples/example_tnk.py cut to pop 24, 10 generations, 3 epochs:
+    every returned point is feasible and the feasibility rank ordered
+    the fronts of every epoch's optimizer."""
+    best = dmosopt_tpu_torch.run({
+        "opt_id": "tnk_small", "obj_fun": _tnk, "problem_parameters": {},
+        "space": {"x1": [1e-6, np.pi], "x2": [1e-6, np.pi]},
+        "objective_names": ["f1", "f2"], "constraint_names": ["c1", "c2"],
+        "feasibility_method_name": "logreg", "population_size": 24,
+        "num_generations": 10, "optimizer_name": "nsga2",
+        "surrogate_method_name": "gpr",
+        "surrogate_method_kwargs": {"n_starts": 2, "n_iter": 20, "seed": 0},
+        "n_initial": 20, "n_epochs": 3, "resample_fraction": 0.5, "random_seed": 1,
+    }, device="cpu", verbose=False, return_constraints=True)
+    c = np.column_stack([v for _, v in best[2]])
+    assert c.shape[0] > 0 and np.all(c > 0)
+    dopt = dopt_dict["tnk_small"]
+    assert [s["feasibility"]["n_fitted"] for s in dopt.epoch_stats] == [2, 2, 2]
+
+
+def test_run_options_raise_or_are_ignored():
+    """return_features=True and unknown keywords raise; the reference's
+    distwq keywords and compile_cache_dir are accepted and do nothing."""
+    with pytest.raises(NotImplementedError, match="return_features"):
+        dmosopt_tpu_torch.run(_params(), device="cpu", verbose=False,
+                              return_features=True)
+    with pytest.raises(TypeError, match="bogus_option"):
+        dmosopt_tpu_torch.run(_params(), device="cpu", verbose=False, bogus_option=1)
+    best = dmosopt_tpu_torch.run(
+        _params(opt_id="legacy", n_epochs=1, num_generations=2, n_initial=2,
+                population_size=8,
+                surrogate_method_kwargs={"n_starts": 1, "n_iter": 5, "seed": 0}),
+        device="cpu", verbose=False, compile_cache_dir="unused",
+        spawn_workers=True, nprocs_per_worker=4,
+    )
+    assert len(best[0]) == N_DIM
+
+
+def test_archive_queries_need_cuda_unless_the_cpu_is_asked_for(monkeypatch):
+    from dmosopt_tpu_torch import moasmo
+
+    x = np.random.default_rng(0).random((10, 3))
+    y = np.column_stack([x[:, 0], 1.0 - x[:, 0]])
+    assert moasmo.get_duplicates(x, device="cpu").shape == (10,)
+    assert moasmo.get_best(x, y, None, None, 3, 2, device="cpu")[0].shape[1] == 3
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for call in (
+        lambda: moasmo.get_best(x, y, None, None, 3, 2, device=None),
+        lambda: moasmo.get_duplicates(x, device=None),
+        lambda: moasmo.remove_duplicates(x, y),
+        lambda: moasmo.get_feasible(x, y, None, None, 3, 2),
+    ):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()

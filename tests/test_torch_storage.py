@@ -295,18 +295,21 @@ def test_resample_dedupe_matches_the_jax_package():
     X = np.random.default_rng(0).random((12, 3)).astype(np.float32)
     X[[4, 9]] = X[[1, 2]]
     np.testing.assert_array_equal(
-        port_moasmo.get_duplicates(X), jax_moasmo.get_duplicates(X)
+        port_moasmo.get_duplicates(X, device="cpu"), jax_moasmo.get_duplicates(X)
     )
     cand = np.array([[0.0, 0.0], [5.0, 5.0], [1.0, 1.0]])
     archive = np.array([[1.0, 1.0], [0.0, 0.0]])
     want = jax_moasmo.get_duplicates(cand, archive)
     assert want.tolist() == [False, False, True]
-    np.testing.assert_array_equal(port_moasmo.get_duplicates(cand, archive), want)
+    np.testing.assert_array_equal(
+        port_moasmo.get_duplicates(cand, archive, device="cpu"), want
+    )
     # more candidates than archive rows, and the reverse
     rng = np.random.default_rng(1)
     arch = rng.random((5, 3))
     cands = np.concatenate([arch[[3, 0]], rng.random((4, 3)), arch[[1, 4]]])
     for a, b in ((cands, arch), (arch, cands)):
         np.testing.assert_array_equal(
-            port_moasmo.get_duplicates(a, b), jax_moasmo.get_duplicates(a, b)
+            port_moasmo.get_duplicates(a, b, device="cpu"),
+            jax_moasmo.get_duplicates(a, b),
         )

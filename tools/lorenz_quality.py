@@ -48,9 +48,13 @@ def _run(package, pop, generations, seed):
         import dmosopt_tpu as pkg
         from dmosopt_tpu import moasmo, strategy
         from dmosopt_tpu.driver import dopt_dict
+        from functools import partial
+
         from dmosopt_tpu_torch.moasmo import get_duplicates
 
-        moasmo.get_duplicates = strategy.get_duplicates = get_duplicates
+        moasmo.get_duplicates = strategy.get_duplicates = partial(
+            get_duplicates, device="cpu"
+        )
         obj = _example().lorenz_objectives
         extra, kwargs = {"jax_objective": True}, {}
     else:
