@@ -37,6 +37,8 @@ default_optimizers = {
 
 default_surrogate_methods = {
     "gpr": "dmosopt_tpu_torch.models.gp.GPR_Matern",
+    "egp": "dmosopt_tpu_torch.models.gp.EGP_Matern",
+    "megp": "dmosopt_tpu_torch.models.gp.MEGP_Matern",
 }
 
 default_sa_methods = {

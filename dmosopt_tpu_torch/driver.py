@@ -19,14 +19,17 @@ EA as the JAX package's does. Constraints (an objective returning
 ``feasibility_method_name``; ``sensitivity_method_name`` sets the
 optimizer's per-gene distribution indices each epoch; a
 ``dynamic_initial_sampling`` hook (an import path) adds evaluation
-rounds to the initial design until it returns None. The driver options
-of the JAX package that this port does not carry yet raise
+rounds to the initial design until it returns None.
+``surrogate_refit`` ("cold", "warm", or a dict of
+`SurrogateRefitConfig` options) reuses the surrogate across epochs;
+with ``save`` its warm state goes into the store after every epoch, in
+the JAX package's format, and a resumed run starts from it. The driver
+options of the JAX package that this port does not carry yet raise
 `NotImplementedError` instead of being ignored: several problems
 (``problem_ids``), features, custom surrogate training, mean-variance
 optimization, ``jax_objective``, an external ``evaluator``, meshes,
-tenant batching, telemetry, and surrogate refit modes other than cold.
-A store written with features or several problems cannot be resumed
-here either.
+tenant batching and telemetry. A store written with features or
+several problems cannot be resumed here either.
 """
 
 from __future__ import annotations
@@ -177,6 +180,11 @@ class DistOptimizer:
         feasibility_method_name, sensitivity_method_name: registry names
           (``"logreg"``; ``"fast"``, ``"dgsm"``) or import paths, with
           their ``*_kwargs``.
+        surrogate_refit: ``"cold"`` (None: every epoch refits from
+          scratch), ``"warm"`` (warm-started refits, rank-k posterior
+          updates once the hyperparameters settle, restart pruning and
+          audit fits), a dict of `SurrogateRefitConfig` options with
+          ``"mode"``, or a config.
         dynamic_initial_sampling: import path of an epoch-0 sampler,
           called with ``file_path``, ``iteration``, ``evaluated_samples``,
           ``next_samples``, ``sampler`` and ``dynamic_initial_sampling_kwargs``;
@@ -188,8 +196,6 @@ class DistOptimizer:
             k for k, default in _UNPORTED_DEFAULTS.items()
             if k in kwargs and not _is_default(kwargs[k], default)
         )
-        if surrogate_refit not in (None, "cold"):
-            bad.append("surrogate_refit")
         if telemetry not in (None, False):
             bad.append("telemetry")
         if bad:
@@ -217,6 +223,7 @@ class DistOptimizer:
             distance_metric=distance_metric,
             termination_conditions=termination_conditions,
             surrogate_method_name=surrogate_method_name,
+            surrogate_refit=surrogate_refit,
             local_random=local_random, random_seed=random_seed,
             time_limit=time_limit, n_initial=n_initial,
             initial_maxiter=initial_maxiter, initial_method=initial_method,
@@ -256,6 +263,7 @@ class DistOptimizer:
             )
         # one process: resume exactly when the file exists
         resuming = file_path is not None and os.path.isfile(file_path)
+        self._resuming = resuming
         self.old_evals = {}
         self.start_epoch = 0
         if resuming:
@@ -437,6 +445,8 @@ class DistOptimizer:
             optimizer_kwargs=self.optimizer_kwargs,
             surrogate_method_name=self.surrogate_method_name,
             surrogate_method_kwargs=self.surrogate_method_kwargs,
+            surrogate_refit=self.surrogate_refit,
+            surrogate_refit_state=self._restored_refit_state(0),
             sensitivity_method_name=self.sensitivity_method_name,
             sensitivity_method_kwargs=self.sensitivity_method_kwargs,
             feasibility_method_name=self.feasibility_method_name,
@@ -447,6 +457,21 @@ class DistOptimizer:
         self.storage_dict[0] = []
         if initial is not None:
             self.print_best()
+
+    def _restored_refit_state(self, problem_id):
+        """The stored surrogate warm state of a problem, or None (a fresh
+        run, no refit mode, or a store without one); it seeds the
+        strategy's controller so a resumed run's first fit is warm
+        (``dmosopt_tpu/driver.py:736-758``)."""
+        if not self._resuming or self.surrogate_refit is None:
+            return None
+        try:
+            return storage.load_refit_state_from_h5(self.file_path, self.opt_id, problem_id)
+        except (OSError, KeyError, ValueError) as e:
+            self.logger.warning(
+                f"could not restore surrogate refit state for problem {problem_id}: {e}"
+            )
+            return None
 
     # ------------------------------------------------------------ queries
 
@@ -560,6 +585,17 @@ class DistOptimizer:
             self.opt_id, problem_id, epoch, optimizer_name, dict(optimizer_params),
             self.file_path, self.logger,
         )
+
+    def save_refit_state(self, problem_id):
+        """Store one problem's surrogate warm state (hyperparameters and
+        schedule counters), overwriting the previous epoch's."""
+        ctrl = self.optimizer_dict[problem_id].refit_controller
+        state = None if ctrl is None else ctrl.export_state()
+        if state is not None:
+            self._submit_write(
+                storage.save_refit_state_to_h5,
+                self.opt_id, problem_id, state, self.file_path, self.logger,
+            )
 
     def save_stats(self, problem_id, epoch):
         # get_stats() runs now (snapshot); only the file write is deferred
@@ -829,6 +865,7 @@ class DistOptimizer:
         })
         if self.save:
             self.save_stats(0, epoch)
+            self.save_refit_state(0)
         # every write queued this epoch is in the file before the epoch
         # counts as done
         self._flush_writes()

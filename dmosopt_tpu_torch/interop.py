@@ -1,7 +1,8 @@
 """State carried across from the JAX package, as plain numpy.
 
-Builds the port's GP fit, NSGA-II, AGE-MOEA, MO-CMA-ES, SMPSO and TRS
-states and a fitted feasibility model from dicts of numpy arrays,
+Builds the port's GP fit (with a mesh-sharded fit's ``whitened``
+factor), a Nyström predictor cache, NSGA-II, AGE-MOEA, MO-CMA-ES, SMPSO
+and TRS states and a fitted feasibility model from dicts of numpy arrays,
 e.g. ``{k: np.asarray(v) for k, v in fit._asdict().items()}`` of a JAX
 `GPFit` or `NSGA2State`, so the same numbers can go through both
 packages. Only numpy crosses the boundary; nothing here imports JAX.
@@ -14,6 +15,7 @@ import torch
 
 from dmosopt_tpu_torch.feasibility import LogisticFeasibilityModel
 from dmosopt_tpu_torch.models.gp import GPFit
+from dmosopt_tpu_torch.models.predictor import NystromCache
 from dmosopt_tpu_torch.optimizers.agemoea import AGEMOEAState
 from dmosopt_tpu_torch.optimizers.cmaes import CMAESState
 from dmosopt_tpu_torch.optimizers.nsga2 import NSGA2State
@@ -29,15 +31,20 @@ def _tensor(v, device):
 
 
 def gp_fit_from_arrays(d: dict, device) -> GPFit:
-    """A `GPFit` on ``device`` from a dict of the JAX fit's fields. The
-    mesh-sharded fit's whitening factor (``whitened``) is not carried."""
+    """A float32 `GPFit` on ``device`` from a dict of the JAX fit's
+    fields, the mesh-sharded fit's whitening factor (``whitened``)
+    included."""
     d = {k: v for k, v in d.items() if v is not None and np.asarray(v).dtype != object}
-    if "whitened" in d:
-        raise NotImplementedError("a fit carrying `whitened` is not ported")
     n_steps = d.pop("n_steps", None)
     fit = GPFit(**{k: _tensor(v, device) for k, v in d.items()})
     fit.n_steps = None if n_steps is None else int(n_steps)
     return fit
+
+
+def nystrom_cache_from_arrays(d: dict, device) -> NystromCache:
+    """A `NystromCache` on ``device`` from a dict of the JAX cache's
+    fields (``cache._asdict()``)."""
+    return NystromCache(**{k: _tensor(d[k], device) for k in NystromCache._fields})
 
 
 def nsga2_state_from_arrays(d: dict, device) -> NSGA2State:

@@ -17,8 +17,10 @@ yields to the caller per generation, because there the host evaluates.
 A termination criterion is checked on the host every
 ``termination_check_interval`` generations, as in the JAX package.
 Epochs are still driven through the reference's suspended-generator
-protocol (MOASMO.py:248,422). The JAX engine's custom training,
-mean-variance optimization, surrogate refit, meshes and telemetry are
+protocol (MOASMO.py:248,422). `train` takes a per-problem
+`SurrogateRefitController` (warm and rank-k refits) and builds the
+surrogate's predictor inside the timed train phase. The JAX engine's
+custom training, mean-variance optimization, meshes and telemetry are
 not ported.
 """
 
@@ -118,7 +120,9 @@ def _surrogate_eval_fn(mdl: Model):
 
     def eval_fn(x):
         out = obj.evaluate(x)
-        return out[0] if isinstance(out, tuple) else out
+        out = out[0] if isinstance(out, tuple) else out
+        # a float64 surrogate answers in float64; the EA stays in x's dtype
+        return out.to(x.dtype)
 
     return eval_fn
 
@@ -440,14 +444,27 @@ def train(
     surrogate_method_kwargs: Optional[Dict[str, Any]] = None,
     surrogate_return_mean_variance: bool = False,
     logger=None,
+    info: Optional[Dict[str, Any]] = None,
+    surrogate_refit=None,
     device=None,
 ):
     """Fit the objective surrogate on feasible, deduplicated data
-    (reference: dmosopt/MOASMO.py:473-532). Beyond
+    (reference: dmosopt/MOASMO.py:473-532; ``dmosopt_tpu/moasmo.py:905-945``).
+
+    ``surrogate_refit`` is a per-problem
+    `models.refit.SurrogateRefitController` or None (the plain
+    constructor): for the exact-GP family it picks a cold, warm, audit or
+    rank-k refit each epoch. The surrogate's predictor (``predictor=``) is
+    built before this returns, so its cache build counts in the caller's
+    timed train phase. ``info``, when given, receives the training-set
+    accounting (``n_train``, ``duplicates_removed``,
+    ``feasible_fraction``), the surrogate's name, the fit's loss and
+    steps, ``refit_path`` and ``gp_predictor``. Beyond
     ``large_n_threshold`` points the JAX package reroutes dense GPs to its
     sparse family, which is not ported; such a fit raises."""
     x = np.asarray(Xinit).copy()
     y = np.asarray(Yinit).copy()
+    n_total = x.shape[0]
 
     feasible, (x, y) = _feasible_subset(C, x, y)
     if logger is not None:
@@ -455,7 +472,14 @@ def train(
             logger.info(f"Found {len(feasible)} feasible solutions")
         else:
             logger.info(f"Found {len(x)} solutions")
+    n_before_dedupe = x.shape[0]
     x, y = remove_duplicates(x, y, device=device)
+    if info is not None:
+        if feasible is not None:
+            info["feasible_fraction"] = (
+                round(len(feasible) / n_total, 4) if n_total else 0.0
+            )
+        info["duplicates_removed"] = int(n_before_dedupe - x.shape[0])
 
     kwargs = dict(surrogate_method_kwargs or {})
     threshold = kwargs.pop("large_n_threshold", LARGE_N_THRESHOLD)
@@ -465,12 +489,49 @@ def train(
             f"({threshold}); the sparse surrogates are not ported"
         )
     cls = resolve(surrogate_method_name, default_surrogate_methods)
-    return cls(
-        x, y, nInput, nOutput, xlb, xub, **kwargs,
-        logger=logger,
-        return_mean_variance=surrogate_return_mean_variance,
-        device=device,
-    )
+
+    def builder(**overrides):
+        return cls(
+            x, y, nInput, nOutput, xlb, xub, **{**kwargs, **overrides},
+            logger=logger,
+            return_mean_variance=surrogate_return_mean_variance,
+            device=device,
+        )
+
+    if surrogate_refit is not None and surrogate_refit.applies(cls):
+        sm = surrogate_refit.fit(
+            builder, x, y,
+            nan=kwargs.get("nan", "remove"),
+            top_k=kwargs.get("top_k"),
+            info=info,
+        )
+    else:
+        if surrogate_refit is not None:
+            surrogate_refit.note_unsupported(cls)
+        sm = builder()
+    # the predictor's cache (a no-op for "solve"), built inside the timed
+    # train phase rather than in the first EA generation
+    build = getattr(sm, "build_predictor", None)
+    if build is not None:
+        build()
+    if info is not None:
+        if hasattr(sm, "predictor_regime"):
+            info["gp_predictor"] = sm.predictor_regime
+        info["n_train"] = int(x.shape[0])
+        info["surrogate"] = (
+            surrogate_method_name
+            if isinstance(surrogate_method_name, str)
+            else getattr(surrogate_method_name, "__name__", str(surrogate_method_name))
+        )
+        fit_info = getattr(sm, "fit_info", None) or {}
+        for src, dst in (
+            ("loss", "surrogate_loss"),
+            ("n_steps", "fit_n_steps"),
+            ("early_stopped", "fit_early_stopped"),
+        ):
+            if src in fit_info:
+                info[dst] = fit_info[src]
+    return sm
 
 
 # -------------------------------------------------------------- sensitivity
@@ -540,6 +601,7 @@ def epoch(
     sensitivity_method_kwargs: Optional[Dict[str, Any]] = None,
     feasibility_method_name=None,
     feasibility_method_kwargs: Optional[Dict[str, Any]] = None,
+    surrogate_refit=None,
     termination=None,
     local_random=None,
     logger=None,
@@ -568,8 +630,10 @@ def epoch(
     ``sensitivity_method_name`` the surrogate's sensitivity indices set
     the optimizer's per-gene ``di_mutation`` and ``di_crossover``
     (``sensitivity_s``, the vectors under ``di_mutation`` and
-    ``di_crossover``). The JAX engine's custom-training, refit and
-    mean-variance options are not ported.
+    ``di_crossover``). ``surrogate_refit`` is the problem's refit
+    controller, handed to `train`, whose accounting (``refit_path``,
+    ``gp_predictor``, ``n_train``, ...) lands in the stats. The JAX
+    engine's custom-training and mean-variance options are not ported.
     """
     nInput = len(param_names)
     nOutput = len(objective_names)
@@ -610,7 +674,8 @@ def epoch(
             nInput, nOutput, xlb, xub, Xinit, Yinit, C,
             surrogate_method_name=surrogate_method_name,
             surrogate_method_kwargs=surrogate_method_kwargs,
-            logger=logger, device=device,
+            logger=logger, info=stats, surrogate_refit=surrogate_refit,
+            device=device,
         )
         _synchronize(device)
         stats["train_s"] = time.perf_counter() - t0

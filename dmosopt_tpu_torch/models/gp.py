@@ -1,10 +1,15 @@
-"""Exact Gaussian-process surrogate, the default path of the JAX package.
+"""Exact Gaussian-process surrogates: the exact-GP family of the JAX package.
 
 Port of ``dmosopt_tpu/models/gp.py``: the `matern52` / `rbf` kernels,
 the bounded reparameterization `_Bounds`, `_regularized_kernel`,
 `_apply_train_mask`, `_nmll`, `_scan_with_convergence`, `fit_gp_batch`
-(no mesh, no warm start), `gp_predict`, `_prepare_training_data`,
-`_pad_to_bucket` and `GPR_Matern` with the ``"solve"`` predictor.
+(with ``warm_start``; no mesh), `fit_gp_shared`, `gp_predict`, the
+cross-epoch posterior updates (`extend_cholesky_rank_k`,
+`posterior_from_params`, `clone_with_fit`), `_prepare_training_data`,
+`_pad_to_bucket`, and the surrogates `GPR_Matern`, `GPR_RBF`,
+`EGP_Matern` and `MEGP_Matern` with the ``predictor`` options
+(``"solve"``, ``"matmul"``, ``"nystrom"``; `models/predictor.py`) and
+``dtype="float64"``.
 
 As in the reference, the hyperparameters of every (restart x objective)
 pair are fitted together: one batched Cholesky of an (S, d, N, N) kernel
@@ -15,7 +20,8 @@ objective kept. The differences are the framework's:
   positive definite; its ``info`` turns that (restart, objective) cell's
   loss non-finite, which the fit masks exactly as the reference masks
   the NaN of `jnp.linalg.cholesky`, so one bad restart never aborts the
-  fit.
+  fit. The posterior updates set a failed factor to NaN, so a block that
+  is not positive definite surfaces as a non-finite NMLL, as there.
 - Adam is written out with optax's numerics (b1 0.9, b2 0.999, eps 1e-8
   outside the square root, bias correction) and the best iterate is
   recorded before each update.
@@ -23,13 +29,20 @@ objective kept. The differences are the framework's:
   per chunk of ``convergence_check_every`` steps (at most 20 syncs per
   fit with the defaults), keeping the reference's exact step count and
   remainder semantics.
+- ``dtype="float64"`` makes the model's tensors float64 on its device;
+  there is no process-wide switch (the JAX package turns on
+  ``jax_enable_x64`` for the whole process).
 - Float32 matrix products run in full float32: the port never enables
   TF32 (``torch.backends.cuda.matmul.allow_tf32`` stays False and the
   float32 matmul precision stays "highest").
+- A model keeps a host copy of its padded training inputs (``_X_host``,
+  cast as the fit's inputs are), so the refit controller's append check
+  needs no device-to-host copy of a fit this package made.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
 from dataclasses import dataclass
 from typing import NamedTuple, Optional, Tuple
@@ -119,6 +132,10 @@ class GPFit:
     train_mask: torch.Tensor  # (N,) 1 = real training row, 0 = padding
     n_steps: Optional[int] = None  # Adam steps actually run
     best_start: Optional[torch.Tensor] = None  # (d,) winning restart index
+    # (d, N, N) whitening factor W = L⁻¹; a fit this package makes never
+    # carries it (the JAX package's mesh-sharded fit does, and `interop`
+    # carries it over). Any posterior update that changes L drops it.
+    whitened: Optional[torch.Tensor] = None
 
 
 def _default_rel_jitter(dtype) -> float:
@@ -169,7 +186,7 @@ def _nmll(params: GPParams, bounds3, X, Y, kernel_fn, rel_jitter, train_mask=Non
     )
     L, info = torch.linalg.cholesky_ex(K)
     y = Y.T.expand(K.shape[:-1])  # (..., d, N)
-    alpha = torch.cholesky_solve(y[..., None], L)[..., 0]
+    alpha = _cho_solve(L, y[..., None])[..., 0]
     val = (
         0.5 * torch.sum(y * alpha, dim=-1)
         + torch.sum(torch.log(torch.diagonal(L, dim1=-2, dim2=-1)), dim=-1)
@@ -261,9 +278,72 @@ class _Adam:
         return out
 
 
+def _minimize(params, loss_fn, vals_shape, learning_rate, n_iter,
+              convergence_tol, convergence_check_every, winner_fn):
+    """Adam on a batch of losses ``loss_fn(*params)`` of ``vals_shape``
+    (the leading axes of every parameter). A non-finite cell adds nothing
+    to the gradient and never becomes a best iterate; each cell's best
+    iterate is recorded before each update; stopping as in
+    `_scan_with_convergence` on ``winner_fn`` of the best values.
+    Returns (best params, best values, steps run)."""
+    p0 = params[0]
+    opt = _Adam(params, learning_rate)
+    best = {"params": [p.clone() for p in params],
+            "vals": torch.full(vals_shape, torch.inf, dtype=p0.dtype, device=p0.device)}
+    nd = len(vals_shape)
+
+    def step():
+        leaves = [p.detach().requires_grad_(True) for p in params]
+        with torch.enable_grad():
+            vals = loss_fn(*leaves)
+            finite = torch.isfinite(vals)
+            total = torch.where(finite, vals, torch.zeros_like(vals)).sum()
+            grads = torch.autograd.grad(total, leaves)
+        vals = torch.where(finite, vals.detach(), torch.full_like(vals, torch.inf))
+        improved = vals < best["vals"]
+        best["params"] = [
+            torch.where(improved.reshape(improved.shape + (1,) * (p.dim() - nd)), p, bp)
+            for p, bp in zip(params, best["params"])
+        ]
+        best["vals"] = torch.where(improved, vals, best["vals"])
+        params[:] = opt.update(params, [torch.nan_to_num(g) for g in grads])
+
+    n_steps = _scan_with_convergence(
+        step, n_iter, convergence_tol, convergence_check_every, winner_fn,
+        lambda: best["vals"],
+    )
+    return best["params"], best["vals"], n_steps
+
+
 def _make_bounds(b, dt, dev):
     return _Bounds(torch.tensor(b[0], dtype=dt, device=dev),
                    torch.tensor(b[1], dtype=dt, device=dev))
+
+
+def _cholesky_or_nan(K):
+    """Lower Cholesky factor of each matrix of K; a matrix that is not
+    positive definite gets an all-NaN factor (what `jnp.linalg.cholesky`
+    returns), so everything solved against it is non-finite."""
+    L, info = torch.linalg.cholesky_ex(K)
+    return torch.where((info == 0)[..., None, None], L, torch.full_like(L, torch.nan))
+
+
+def _cho_solve(L, B):
+    """(L Lᵀ)⁻¹ B for a batch of lower factors L (..., N, N) and right-hand
+    sides B (..., N, k), as two triangular solves: `torch.cholesky_solve`
+    fails on CUDA for a batch of float64 factors of 8192 rows."""
+    z = torch.linalg.solve_triangular(L, B, upper=False)
+    return torch.linalg.solve_triangular(L.mT, z, upper=True)
+
+
+def _posterior(X, Y, train_mask, amp, ls, noise, kernel_fn, rel_jitter):
+    """(L, alpha) of the masked, regularized kernel of d GPs at fixed
+    hyperparameters: L (d, N, N), alpha (d, N) for targets Y (N, d)."""
+    K = _apply_train_mask(
+        _regularized_kernel(X, ls, amp, noise, kernel_fn, rel_jitter), train_mask
+    )
+    L = _cholesky_or_nan(K)
+    return L, _cho_solve(L, Y.T[..., None])[..., 0]
 
 
 def fit_gp_batch(
@@ -282,6 +362,7 @@ def fit_gp_batch(
     train_mask: Optional[torch.Tensor] = None,
     convergence_tol="auto",
     convergence_check_every: Optional[int] = None,
+    warm_start: Optional[Tuple] = None,
 ) -> GPFit:
     """Fit d independent GPs with S random restarts each (reference
     `fit_gp_batch`, gp.py:287). The (S, d) grid of NMLLs shares one
@@ -291,7 +372,12 @@ def fit_gp_batch(
     from ``generator``. `train_mask` marks real rows of bucket-padded
     X/Y; masked fits equal the unpadded fits. Convergence stopping as in
     `_scan_with_convergence`, with the winner (min over restarts) per
-    objective as the watched quantity."""
+    objective as the watched quantity.
+
+    ``warm_start`` is an ``(amp, ls, noise)`` triple of shapes (d,),
+    (d, L), (d,) from a previous converged fit (gp.py:305, :371-385):
+    restart 0 then starts exactly there and the others are jittered
+    around it by the same draws as a cold fit."""
     N, n = X.shape
     dt, dev = X.dtype, X.device
     if train_mask is not None:
@@ -310,60 +396,38 @@ def fit_gp_batch(
     bounds3 = (b_amp, b_ls, b_noise)
     kernel_fn = _KERNELS[kernel]
 
+    anchors = (1.0, 0.5, 1e-6) if warm_start is None else warm_start
+
     def init(b, value, shape):
-        return b.inverse(torch.tensor(value, dtype=dt, device=dev)).expand(shape)
+        return b.inverse(torch.as_tensor(value, dtype=dt, device=dev)).expand(shape)
 
     def jitter(shape):
         return 2.0 * torch.randn(shape, generator=generator, dtype=dt, device=dev)
 
     start_mask = (torch.arange(n_starts, device=dev) > 0).to(dt)
     params = [
-        init(b_amp, 1.0, (n_starts, d)) + start_mask[:, None] * jitter((n_starts, d)),
-        init(b_ls, 0.5, (n_starts, d, Lls))
+        init(b_amp, anchors[0], (n_starts, d))
+        + start_mask[:, None] * jitter((n_starts, d)),
+        init(b_ls, anchors[1], (n_starts, d, Lls))
         + start_mask[:, None, None] * jitter((n_starts, d, Lls)),
-        init(b_noise, 1e-6, (n_starts, d)) + start_mask[:, None] * jitter((n_starts, d)),
+        init(b_noise, anchors[2], (n_starts, d))
+        + start_mask[:, None] * jitter((n_starts, d)),
     ]
-    opt = _Adam(params, learning_rate)
-    best = {"params": [p.clone() for p in params],
-            "vals": torch.full((n_starts, d), torch.inf, dtype=dt, device=dev)}
-
-    def step():
-        leaves = [p.detach().requires_grad_(True) for p in params]
-        with torch.enable_grad():
-            vals = _nmll(GPParams(*leaves), bounds3, X, Y, kernel_fn,
-                         rel_jitter, train_mask)
-            finite = torch.isfinite(vals)
-            total = torch.where(finite, vals, torch.zeros_like(vals)).sum()
-            grads = torch.autograd.grad(total, leaves)
-        vals = torch.where(finite, vals.detach(), torch.full_like(vals, torch.inf))
-        improved = vals < best["vals"]
-        best["params"] = [
-            torch.where(improved.reshape(improved.shape + (1,) * (p.dim() - 2)),
-                        p, bp)
-            for p, bp in zip(params, best["params"])
-        ]
-        best["vals"] = torch.where(improved, vals, best["vals"])
-        grads = [torch.nan_to_num(g) for g in grads]
-        params[:] = opt.update(params, grads)
-
-    n_steps = _scan_with_convergence(
-        step, n_iter, convergence_tol, convergence_check_every,
-        lambda v: torch.amin(v, dim=0), lambda: best["vals"],
+    best_params, final, n_steps = _minimize(
+        params,
+        lambda *leaves: _nmll(GPParams(*leaves), bounds3, X, Y, kernel_fn,
+                              rel_jitter, train_mask),
+        (n_starts, d), learning_rate, n_iter, convergence_tol,
+        convergence_check_every, lambda v: torch.amin(v, dim=0),
     )
-    final = best["vals"]
     best_start = torch.argmin(final, dim=0)  # (d,)
     cols = torch.arange(d, device=dev)
-    u_amp, u_ls, u_noise = (p[best_start, cols] for p in best["params"])
+    u_amp, u_ls, u_noise = (p[best_start, cols] for p in best_params)
     amp = b_amp.forward(u_amp)
     ls = b_ls.forward(u_ls)
     noise = b_noise.forward(u_noise)
 
-    K = _apply_train_mask(
-        _regularized_kernel(X, ls, amp, noise, kernel_fn, rel_jitter), train_mask
-    )
-    L, info = torch.linalg.cholesky_ex(K)
-    L = torch.where(info[:, None, None] == 0, L, torch.full_like(L, torch.nan))
-    alpha = torch.cholesky_solve(Y.T[..., None], L)[..., 0]
+    L, alpha = _posterior(X, Y, train_mask, amp, ls, noise, kernel_fn, rel_jitter)
     tm = torch.ones(N, dtype=dt, device=dev) if train_mask is None else train_mask.to(dt)
     return GPFit(X=X, L=L, alpha=alpha, amp=amp, ls=ls, noise=noise,
                  y_mean=torch.zeros(d, dtype=dt, device=dev),
@@ -390,6 +454,187 @@ def gp_predict(fit: GPFit, Xq: torch.Tensor, kernel: str = "matern52"):
     return mean.T, var.T
 
 
+def fit_gp_shared(
+    generator: torch.Generator,
+    X: torch.Tensor,  # (N, n) unit box
+    Y: torch.Tensor,  # (N, d) standardized targets
+    lengthscale_bounds: Tuple[float, float] = (1e-3, 100.0),
+    amplitude_bounds: Tuple[float, float] = (1e-4, 1e3),
+    noise_bounds: Tuple[float, float] = (1e-9, 1e-2),
+    kernel: str = "matern52",
+    n_starts: int = 8,
+    n_iter: int = 300,
+    learning_rate: float = 0.1,
+    rel_jitter: Optional[float] = None,
+    train_mask: Optional[torch.Tensor] = None,
+    convergence_tol="auto",
+    convergence_check_every: Optional[int] = None,
+) -> GPFit:
+    """Joint multi-output fit (reference `fit_gp_shared`, gp.py:478): one
+    shared ARD kernel for all d objectives, optimized on the summed exact
+    MLL, one Cholesky per restart serving every objective; the posterior
+    stays per objective. Restart 0 is the deterministic init, the others
+    jittered by ``2 * N(0, 1)`` draws (amp, then ls, then noise, as in the
+    reference); convergence stopping on the winning summed NMLL."""
+    N, n = X.shape
+    dt, dev = X.dtype, X.device
+    if train_mask is not None:
+        Y = Y * train_mask[:, None].to(Y.dtype)
+    d = Y.shape[1]
+    convergence_tol, convergence_check_every = _resolve_convergence_defaults(
+        d, convergence_tol, convergence_check_every
+    )
+    if rel_jitter is None:
+        rel_jitter = _default_rel_jitter(dt)
+    b_amp = _make_bounds(amplitude_bounds, dt, dev)
+    b_ls = _make_bounds(lengthscale_bounds, dt, dev)
+    b_noise = _make_bounds(noise_bounds, dt, dev)
+    kernel_fn = _KERNELS[kernel]
+    N_eff = N if train_mask is None else torch.sum(train_mask)
+
+    def init(b, value, shape):
+        u = b.inverse(torch.tensor(value, dtype=dt, device=dev)).expand(shape)
+        jitter = 2.0 * torch.randn(shape, generator=generator, dtype=dt, device=dev)
+        mask = (torch.arange(n_starts, device=dev) > 0).to(dt)
+        return u + mask.reshape((n_starts,) + (1,) * (len(shape) - 1)) * jitter
+
+    params = [init(b_amp, 1.0, (n_starts,)), init(b_ls, 0.5, (n_starts, n)),
+              init(b_noise, 1e-6, (n_starts,))]
+
+    def loss(u_amp, u_ls, u_noise):
+        K = _apply_train_mask(
+            _regularized_kernel(X, b_ls.forward(u_ls), b_amp.forward(u_amp),
+                                b_noise.forward(u_noise), kernel_fn, rel_jitter),
+            train_mask,
+        )
+        L, info = torch.linalg.cholesky_ex(K)  # (S, N, N)
+        alpha = _cho_solve(L, Y.expand(n_starts, N, d))
+        val = (
+            0.5 * torch.sum(Y * alpha, dim=(-2, -1))
+            + d * torch.sum(torch.log(torch.diagonal(L, dim1=-2, dim2=-1)), dim=-1)
+            + 0.5 * d * N_eff * _LOG2PI
+        )
+        return torch.where(info == 0, val, torch.full_like(val, torch.nan))
+
+    best_params, vals, n_steps = _minimize(
+        params, loss, (n_starts,), learning_rate, n_iter, convergence_tol,
+        convergence_check_every, torch.amin,
+    )
+    i = torch.argmin(vals)
+    amp = b_amp.forward(best_params[0][i]).expand(d)
+    ls = b_ls.forward(best_params[1][i]).expand(d, n)
+    noise = b_noise.forward(best_params[2][i]).expand(d)
+    L, alpha = _posterior(X, Y, train_mask, amp, ls, noise, kernel_fn, rel_jitter)
+    tm = torch.ones(N, dtype=dt, device=dev) if train_mask is None else train_mask.to(dt)
+    return GPFit(X=X, L=L, alpha=alpha, amp=amp, ls=ls, noise=noise,
+                 y_mean=torch.zeros(d, dtype=dt, device=dev),
+                 y_std=torch.ones(d, dtype=dt, device=dev),
+                 nmll=(vals[i] / d).expand(d), train_mask=tm, n_steps=n_steps)
+
+
+# ------------------------------------------- cross-epoch posterior updates
+
+
+def _masked_nmll_from_chol(L, alpha, y, train_mask):
+    """Exact NMLL of d GPs given their factorized posteriors (reference
+    gp.py:680): L (d, P, P), alpha and y (d, P); padded rows contribute
+    zero to every term. Returns (d,)."""
+    return (
+        0.5 * torch.sum(y * alpha, dim=-1)
+        + torch.sum(torch.log(torch.diagonal(L, dim1=-2, dim2=-1)), dim=-1)
+        + 0.5 * torch.sum(train_mask) * _LOG2PI
+    )
+
+
+def extend_cholesky_rank_k(
+    L_old: torch.Tensor,  # (d, P, P) previous factor (identity on padded rows)
+    X_pad: torch.Tensor,  # (P, n) inputs with rows [n_old, n_new) newly filled
+    train_mask: torch.Tensor,  # (P,) 1 for rows < n_new
+    Yn_pad: torch.Tensor,  # (P, d) standardized targets, zero beyond n_new
+    amp: torch.Tensor,  # (d,)
+    ls: torch.Tensor,  # (d, L)
+    noise: torch.Tensor,  # (d,)
+    kernel: str,
+    n_old: int,
+    n_new: int,
+    rel_jitter: Optional[float],
+):
+    """Blocked rank-k Cholesky update (reference gp.py:692): extend a
+    cached posterior by the k = n_new - n_old rows appended inside the
+    padding bucket. The padded rows are an identity block of the masked
+    kernel, so the old factor's top-left (n_old, n_old) block is the
+    Cholesky of the old training kernel and the update is the block step
+    L21 = K21 L11⁻ᵀ, L22 = chol(K22 − L21 L21ᵀ), at O(N²k) per objective,
+    then alpha re-solved against all targets. A (k, k) block that is not
+    positive definite leaves an all-NaN L22, so the NMLL is non-finite.
+    Returns (L, alpha, nmll) of shapes ((d, P, P), (d, P), (d,))."""
+    kernel_fn = _KERNELS[kernel]
+    if rel_jitter is None:
+        rel_jitter = _default_rel_jitter(X_pad.dtype)
+    k = n_new - n_old
+    # only the appended rows' kernel blocks: rows [n_old, n_new) against
+    # real columns [0, n_new), where the train mask is 1 throughout
+    rows = kernel_fn(X_pad[n_old:n_new], X_pad[:n_new], ls, amp)  # (d, k, n_new)
+    B = rows[..., :n_old]
+    K22 = rows[..., n_old:n_new]
+    eye = torch.eye(k, dtype=X_pad.dtype, device=X_pad.device)
+    K22 = 0.5 * (K22 + K22.mT) + (noise + _JITTER + rel_jitter * amp)[:, None, None] * eye
+    L21t = torch.linalg.solve_triangular(
+        L_old[:, :n_old, :n_old], B.mT, upper=False
+    )  # (d, n_old, k)
+    S = K22 - L21t.mT @ L21t
+    L22 = _cholesky_or_nan(0.5 * (S + S.mT))
+    L_new = L_old.clone()
+    L_new[:, n_old:n_new, :n_old] = L21t.mT
+    L_new[:, n_old:n_new, n_old:n_new] = L22
+    y = Yn_pad.T
+    alpha = _cho_solve(L_new, y[..., None])[..., 0]
+    return L_new, alpha, _masked_nmll_from_chol(L_new, alpha, y, train_mask)
+
+
+def posterior_from_params(
+    X: torch.Tensor,  # (P, n)
+    Yn: torch.Tensor,  # (P, d)
+    train_mask: torch.Tensor,  # (P,)
+    amp: torch.Tensor,  # (d,)
+    ls: torch.Tensor,  # (d, L)
+    noise: torch.Tensor,  # (d,)
+    kernel: str,
+    rel_jitter: Optional[float],
+):
+    """Full masked refactorization at fixed hyperparameters (reference
+    gp.py:756): the fall-back when a rank-k append crosses a bucket
+    boundary, and the oracle of the rank-k update. A kernel that is not
+    positive definite gets a NaN factor and NMLL. Returns (L, alpha,
+    nmll) like `extend_cholesky_rank_k`."""
+    L, alpha = _posterior(X, Yn, train_mask, amp, ls, noise, _KERNELS[kernel], rel_jitter)
+    return L, alpha, _masked_nmll_from_chol(L, alpha, Yn.T, train_mask)
+
+
+def clone_with_fit(prev, fit: GPFit, fit_info: dict):
+    """New surrogate of `prev`'s class sharing its normalization state
+    and device but carrying an updated posterior (reference gp.py:784),
+    built without the constructor's fit: the result of a rank-k append
+    or a bucket-crossing refactorization. The predictor cache is not
+    carried over (serving it would be stale); callers that can extend it
+    set ``_predictor_obj`` afterwards. The host copy of the inputs is
+    the caller's to set (``_X_host``), else it is copied from the fit on
+    first use."""
+    new = object.__new__(type(prev))
+    for attr in (
+        "nInput", "nOutput", "xlb", "xub", "xrg", "_dtype",
+        "return_mean_variance", "logger", "device", "_xlb_t", "_xrg_t", "kernel",
+    ):
+        setattr(new, attr, getattr(prev, attr))
+    new._rel_jitter = getattr(prev, "_rel_jitter", None)
+    new._predictor_spec = dict(getattr(prev, "_predictor_spec", None) or {})
+    new._predictor_obj = None
+    new._X_host = None
+    new.fit = fit
+    new.fit_info = fit_info
+    return new
+
+
 # ---------------------------------------------------------------- wrappers
 
 
@@ -407,11 +652,15 @@ def _gp_fit_info(fit: GPFit, n_iter: int) -> dict:
     }
 
 
-def _prepare_training_data(model, xin, yin, nInput, nOutput, xlb, xub, nan, top_k):
+def _prepare_training_data(
+    model, xin, yin, nInput, nOutput, xlb, xub, nan, top_k, y_stats=None
+):
     """Shared training-data pipeline (reference model.py:1206-1229): NaN
     policy, optional top-k truncation, unit-box x normalization, per-
     objective y standardization. Sets the bounds attributes on ``model``
-    and returns (X_unit, Y_standardized, y_mean, y_std) as float64 numpy."""
+    and returns (X_unit, Y_standardized, y_mean, y_std) as float64 numpy.
+    ``y_stats``, a ``(y_mean, y_std)`` pair, overrides the computed
+    standardization (the rank-k refit keeps the cached alpha's)."""
     model.nInput = int(nInput)
     model.nOutput = int(nOutput)
     model.xlb = np.asarray(xlb, dtype=np.float64)
@@ -428,9 +677,13 @@ def _prepare_training_data(model, xin, yin, nInput, nOutput, xlb, xub, nan, top_
     yin = np.nan_to_num(yin)
 
     X = (xin - model.xlb) / model.xrg
-    y_mean = yin.mean(axis=0)
-    y_std = yin.std(axis=0)
-    y_std = np.where(y_std == 0.0, 1.0, y_std)
+    if y_stats is None:
+        y_mean = yin.mean(axis=0)
+        y_std = yin.std(axis=0)
+        y_std = np.where(y_std == 0.0, 1.0, y_std)
+    else:
+        y_mean = np.asarray(y_stats[0], dtype=np.float64)
+        y_std = np.asarray(y_stats[1], dtype=np.float64)
     Yn = (yin - y_mean) / y_std
     return X, Yn, y_mean, y_std
 
@@ -462,13 +715,123 @@ def _pad_to_bucket(X: np.ndarray, Yn: np.ndarray, cap: Optional[int] = None):
     return X_pad, Y_pad, mask
 
 
-class GPR_Matern:
+def _resolve_dtype(dtype) -> torch.dtype:
+    """"float32"/"float64" (or numpy dtypes) -> the model's torch dtype.
+    Float64 is per model: the JAX package's process-wide x64 switch
+    (gp.py:895-905) has no counterpart here."""
+    return torch.float64 if np.dtype(dtype) == np.float64 else torch.float32
+
+
+def _resolve_predictor_spec(
+    predictor, nystrom_points, nystrom_probe_points, nystrom_mean_tol,
+    nystrom_var_ratio_tol,
+):
+    """Validate and pack the exact-GP family's predictor options (the
+    `GPPredictor` keyword arguments but the fit and kernel; gp.py:907)."""
+    from dmosopt_tpu_torch.models.predictor import PREDICTOR_MODES
+
+    if predictor not in PREDICTOR_MODES:
+        raise ValueError(f"predictor {predictor!r} not in {PREDICTOR_MODES}")
+    return dict(
+        mode=predictor,
+        nystrom_points=int(nystrom_points),
+        nystrom_probe_points=int(nystrom_probe_points),
+        nystrom_mean_tol=float(nystrom_mean_tol),
+        nystrom_var_ratio_tol=float(nystrom_var_ratio_tol),
+    )
+
+
+class SurrogateMixin:
+    """The surrogate surface shared by the exact-GP family (reference
+    ``SurrogateMixin``, gp.py:964): unit-box x normalization, the
+    reference's ``predict``/``evaluate`` contract, and predictions routed
+    through the per-fit `GPPredictor`. A model holds ``device``,
+    ``_dtype``, the bounds as tensors (``_xlb_t``, ``_xrg_t``), ``fit``,
+    ``_predictor_spec`` and ``_predictor_obj``."""
+
+    def _init_common(self, device, dtype, return_mean_variance, logger, spec):
+        self.device = resolve_device(device)
+        self._dtype = dtype
+        self.return_mean_variance = return_mean_variance
+        self.logger = logger
+        self._predictor_spec = spec
+        self._predictor_obj = None
+
+    def _set_bounds_tensors(self):
+        self._xlb_t = torch.as_tensor(self.xlb, dtype=self._dtype, device=self.device)
+        self._xrg_t = torch.as_tensor(self.xrg, dtype=self._dtype, device=self.device)
+
+    def normalize_x(self, xin):
+        x = torch.as_tensor(xin, dtype=self._dtype, device=self.device)
+        return (x - self._xlb_t) / self._xrg_t
+
+    def predict_normalized(self, Xq: torch.Tensor):
+        """Mean and variance at unit-box queries through the per-fit
+        predictor (``"solve"``, the default, is `gp_predict`)."""
+        return self._predictor().predict_normalized(Xq)
+
+    def predict(self, xin):
+        x = torch.atleast_2d(torch.as_tensor(xin, dtype=self._dtype, device=self.device))
+        return self.predict_normalized(self.normalize_x(x))
+
+    def evaluate(self, x):
+        mean, var = self.predict(x)
+        if self.return_mean_variance:
+            return mean, var
+        return mean
+
+    def get_stats(self):
+        return dict(getattr(self, "fit_info", None) or {})
+
+    def _predictor(self):
+        if self._predictor_obj is None:
+            from dmosopt_tpu_torch.models.predictor import GPPredictor
+
+            self._predictor_obj = GPPredictor(
+                self.fit, self.kernel,
+                rel_jitter=getattr(self, "_rel_jitter", None),
+                **self._predictor_spec,
+            )
+            if (
+                self._predictor_obj.regime == "nystrom"
+                and self.fit.whitened is not None
+            ):
+                # a carried-over W = L⁻¹ was only the probe's matmul
+                # fall-back; the probe passed, so release it
+                self.fit = dataclasses.replace(self.fit, whitened=None)
+                self._predictor_obj.fit = self.fit
+        return self._predictor_obj
+
+    def build_predictor(self):
+        """Build (or return) the per-fit predictive cache eagerly
+        (gp.py:1212), so `moasmo.train` pays its O(N³) build inside the
+        timed train phase rather than in the first EA generation."""
+        return self._predictor()
+
+    @property
+    def predictor_regime(self) -> str:
+        """Regime serving predictions: the requested mode, or ``matmul``
+        after a failed Nyström distillation probe."""
+        if self._predictor_obj is not None:
+            return self._predictor_obj.regime
+        return self._predictor_spec["mode"]
+
+    def _host_X(self) -> np.ndarray:
+        """The fit's padded inputs on the host, in the fit's dtype: the
+        copy kept at construction, else one device-to-host copy."""
+        if getattr(self, "_X_host", None) is None:
+            self._X_host = self.fit.X.detach().cpu().numpy()
+        return self._X_host
+
+
+class GPR_Matern(SurrogateMixin):
     """Independent exact GP per objective, Matérn-5/2 kernel (reference
     ``GPR_Matern``, model.py:1182-1275; JAX package gp.py:986):
-    hyperparameters from batched multi-start Adam, predictions through the
-    ``"solve"`` predictor. ``device`` None means CUDA. Options of the JAX
-    class that this port does not carry (other predictors, float64,
-    warm starts, meshes) raise `NotImplementedError`."""
+    hyperparameters from batched multi-start Adam (from ``warm_start``
+    when given), predictions through the ``predictor`` regime.
+    ``dtype="float64"`` gives float64 tensors, no relative jitter.
+    ``device`` None means CUDA. Meshes (``mesh``, ``surrogate_mesh``) and
+    other optimizers raise `NotImplementedError`."""
 
     kernel = "matern52"
     anisotropic_default = False
@@ -499,6 +862,10 @@ class GPR_Matern:
         convergence_check_every: Optional[int] = None,
         warm_start=None,
         predictor: str = "solve",
+        nystrom_points: int = 512,
+        nystrom_probe_points: int = 256,
+        nystrom_mean_tol: float = 0.1,
+        nystrom_var_ratio_tol: float = 3.0,
         mesh=None,
         surrogate_mesh=None,
         logger=None,
@@ -506,9 +873,6 @@ class GPR_Matern:
         **kwargs,
     ):
         unported = {
-            "predictor": predictor != "solve",
-            "dtype": np.dtype(dtype) != np.float32,
-            "warm_start": warm_start is not None,
             "mesh": mesh is not None,
             "surrogate_mesh": surrogate_mesh not in (None, False),
             "optimizer": optimizer != "adam",
@@ -516,21 +880,45 @@ class GPR_Matern:
         bad = sorted(k for k, v in unported.items() if v)
         if bad:
             raise NotImplementedError(f"GPR_Matern options not ported: {bad}")
-        self.device = dev = resolve_device(device)
-        self.return_mean_variance = return_mean_variance
-        self.logger = logger
-        self._dtype = dt = torch.float32
+        dt = _resolve_dtype(dtype)
+        spec = _resolve_predictor_spec(
+            predictor, nystrom_points, nystrom_probe_points,
+            nystrom_mean_tol, nystrom_var_ratio_tol,
+        )
+        self._init_common(device, dt, return_mean_variance, logger, spec)
+        dev = self.device
         X, Yn, y_mean, y_std = _prepare_training_data(
             self, xin, yin, nInput, nOutput, xlb, xub, nan, top_k
         )
         if anisotropic is None:
             anisotropic = self.anisotropic_default
         X, Yn, tmask = _pad_to_bucket(X, Yn)
-        self._xlb_t = torch.as_tensor(self.xlb, dtype=dt, device=dev)
-        self._xrg_t = torch.as_tensor(self.xrg, dtype=dt, device=dev)
+        if rel_jitter is None:
+            rel_jitter = _default_rel_jitter(dt)
+        self._rel_jitter = rel_jitter
+        if warm_start is not None:
+            # (amp, ls, noise) of a previous converged fit of the same
+            # configuration (gp.py:1061-1076)
+            w_amp, w_ls, w_noise = warm_start
+            Lls = int(nInput) if anisotropic else 1
+            w_ls = np.asarray(w_ls, dtype=np.float64)
+            if w_ls.shape != (int(nOutput), Lls):
+                raise ValueError(
+                    f"warm_start lengthscales have shape {w_ls.shape}; "
+                    f"this fit expects {(int(nOutput), Lls)} "
+                    f"(anisotropic={bool(anisotropic)})"
+                )
+            warm_start = tuple(
+                torch.as_tensor(np.asarray(w, dtype=np.float64), dtype=dt, device=dev)
+                for w in (w_amp, w_ls, w_noise)
+            )
+        self._set_bounds_tensors()
+        # the fit's inputs as the host holds them (same rounding as the
+        # device copy): the refit controller's append check reads these
+        self._X_host = X.astype(np.float64 if dt == torch.float64 else np.float32)
         fit = fit_gp_batch(
             as_torch_generator(seed, dev),
-            torch.as_tensor(X, dtype=dt, device=dev),
+            torch.as_tensor(self._X_host, device=dev),
             torch.as_tensor(Yn, dtype=dt, device=dev),
             train_mask=torch.as_tensor(tmask, dtype=dt, device=dev),
             lengthscale_bounds=tuple(length_scale_bounds),
@@ -544,28 +932,101 @@ class GPR_Matern:
             rel_jitter=rel_jitter,
             convergence_tol=convergence_tol,
             convergence_check_every=convergence_check_every,
+            warm_start=warm_start,
         )
         fit.y_mean = torch.as_tensor(y_mean, dtype=dt, device=dev)
         fit.y_std = torch.as_tensor(y_std, dtype=dt, device=dev)
         self.fit = fit
         self.fit_info = _gp_fit_info(fit, n_iter)
 
-    def normalize_x(self, xin):
-        x = torch.as_tensor(xin, dtype=self._dtype, device=self.device)
-        return (x - self._xlb_t) / self._xrg_t
 
-    def predict_normalized(self, Xq: torch.Tensor):
-        return gp_predict(self.fit, Xq, kernel=self.kernel)
+class GPR_RBF(GPR_Matern):
+    """RBF-kernel variant (reference model.py:1278-1325; gp.py:1229)."""
 
-    def predict(self, xin):
-        x = torch.atleast_2d(torch.as_tensor(xin, dtype=self._dtype, device=self.device))
-        return self.predict_normalized(self.normalize_x(x))
+    kernel = "rbf"
 
-    def evaluate(self, x):
-        mean, var = self.predict(x)
-        if self.return_mean_variance:
-            return mean, var
-        return mean
 
-    def get_stats(self):
-        return dict(self.fit_info)
+class EGP_Matern(GPR_Matern):
+    """Exact GP with ARD lengthscales and more Adam steps, the analog of
+    the reference's GPyTorch path (model_gpytorch.py:1929-2167; JAX
+    package gp.py:1235); ``adam_lr`` is the reference's name for
+    ``learning_rate``."""
+
+    anisotropic_default = True
+
+    def __init__(self, *args, n_iter: int = 300, **kwargs):
+        if "adam_lr" in kwargs:
+            kwargs.setdefault("learning_rate", float(kwargs.pop("adam_lr")))
+        super().__init__(*args, n_iter=n_iter, **kwargs)
+
+
+class MEGP_Matern(SurrogateMixin):
+    """Multi-output exact GP fitted jointly (reference
+    model_gpytorch.py:1623-1926; JAX package gp.py:1250-1328): one shared
+    ARD kernel for all objectives, hyperparameters on the sum of the
+    per-objective exact MLLs (`fit_gp_shared`), independent posteriors.
+    Float32, as in the JAX package; ``device`` None means CUDA."""
+
+    kernel = "matern52"
+
+    def __init__(
+        self,
+        xin,
+        yin,
+        nInput,
+        nOutput,
+        xlb,
+        xub,
+        seed=None,
+        length_scale_bounds=(1e-3, 100.0),
+        constant_kernel_bounds=(1e-4, 1e3),
+        noise_level_bounds=(1e-9, 1e-2),
+        return_mean_variance: bool = False,
+        nan: Optional[str] = "remove",
+        top_k: Optional[int] = None,
+        n_starts: int = 8,
+        n_iter: int = 300,
+        learning_rate: float = 0.1,
+        convergence_tol="auto",
+        convergence_check_every: Optional[int] = None,
+        predictor: str = "solve",
+        nystrom_points: int = 512,
+        nystrom_probe_points: int = 256,
+        nystrom_mean_tol: float = 0.1,
+        nystrom_var_ratio_tol: float = 3.0,
+        logger=None,
+        device=None,
+        **kwargs,
+    ):
+        spec = _resolve_predictor_spec(
+            predictor, nystrom_points, nystrom_probe_points,
+            nystrom_mean_tol, nystrom_var_ratio_tol,
+        )
+        dt = torch.float32
+        self._init_common(device, dt, return_mean_variance, logger, spec)
+        dev = self.device
+        X, Yn, y_mean, y_std = _prepare_training_data(
+            self, xin, yin, nInput, nOutput, xlb, xub, nan, top_k
+        )
+        X, Yn, tmask = _pad_to_bucket(X, Yn)
+        self._set_bounds_tensors()
+        self._X_host = X.astype(np.float32)
+        fit = fit_gp_shared(
+            as_torch_generator(seed, dev),
+            torch.as_tensor(self._X_host, device=dev),
+            torch.as_tensor(Yn, dtype=dt, device=dev),
+            train_mask=torch.as_tensor(tmask, dtype=dt, device=dev),
+            lengthscale_bounds=tuple(length_scale_bounds),
+            amplitude_bounds=tuple(constant_kernel_bounds),
+            noise_bounds=tuple(noise_level_bounds),
+            kernel=self.kernel,
+            n_starts=n_starts,
+            n_iter=n_iter,
+            learning_rate=learning_rate,
+            convergence_tol=convergence_tol,
+            convergence_check_every=convergence_check_every,
+        )
+        fit.y_mean = torch.as_tensor(y_mean, dtype=dt, device=dev)
+        fit.y_std = torch.as_tensor(y_std, dtype=dt, device=dev)
+        self.fit = fit
+        self.fit_info = _gp_fit_info(fit, n_iter)

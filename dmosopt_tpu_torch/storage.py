@@ -24,9 +24,10 @@ Layout:
     /{opt_id}/{problem_id}/surrogate_evals/{epoch}/{gen_index,x,y}
     /{opt_id}/{problem_id}/optimizer_params/{epoch}  (json attrs)
     /{opt_id}/{problem_id}/optimizer_stats/{epoch}   (json attrs)
+    /{opt_id}/{problem_id}.attrs["surrogate_refit"]  (json, latest epoch)
 
-Not ported yet: the telemetry, span and alert groups, the surrogate
-refit state, and the fronts and service checkpoint.
+Not ported yet: the telemetry, span and alert groups, and the fronts
+and service checkpoint.
 """
 
 from __future__ import annotations
@@ -299,7 +300,31 @@ def save_stats_to_h5(opt_id, problem_id, epoch, fpath, logger=None, stats=None):
                 grp.attrs[k] = str(v)
 
 
+def save_refit_state_to_h5(opt_id, problem_id, state, fpath, logger=None):
+    """Store one problem's surrogate warm-refit state (the JSON-able dict
+    of `SurrogateRefitController.export_state`) as the JSON attribute
+    ``surrogate_refit`` of ``/{opt_id}/{problem_id}``, overwritten each
+    epoch (``dmosopt_tpu/storage.py:475``): only the latest converged
+    hyperparameters seed a resumed run."""
+    h5py = _require_h5py()
+    with h5py.File(fpath, "a") as h5:
+        grp = h5_get_group(h5, f"{opt_id}/{problem_id}")
+        _json_attr(grp, "surrogate_refit", state)
+
+
 # ------------------------------------------------------------------- read
+
+
+def load_refit_state_from_h5(fpath, opt_id, problem_id) -> Optional[Dict]:
+    """The stored warm-refit state dict of a problem, or None when the
+    store has none (a fresh run, cold mode, or an older store)."""
+    h5py = _require_h5py()
+    with h5py.File(fpath, "r") as h5:
+        key = f"{opt_id}/{problem_id}"
+        if key not in h5:
+            return None
+        return _load_json_attr(h5[key], "surrogate_refit")
+
 
 
 def h5_load_raw(fpath, opt_id):

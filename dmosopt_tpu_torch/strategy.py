@@ -14,8 +14,12 @@ package filters the same way, lazily, before any new row is folded).
 ``termination_conditions`` builds the epoch's stopping criterion as
 the JAX package does (`_build_termination`); one criterion object
 serves every epoch of the run, so its windows carry across epochs. The
-feasibility and sensitivity methods pass through to each epoch. The
-refit controller and features are not ported; the driver rejects them.
+feasibility and sensitivity methods pass through to each epoch. With
+``surrogate_refit`` other than cold the strategy owns one
+`SurrogateRefitController` whose state persists across its epochs (and,
+seeded from ``surrogate_refit_state``, across a resume) and hands it to
+every epoch's fit (``dmosopt_tpu/strategy.py:77-125, :413``). Features
+are not ported; the driver rejects them.
 """
 
 from __future__ import annotations
@@ -35,6 +39,10 @@ from dmosopt_tpu_torch.datatypes import (
     EvalRequest,
     OptProblem,
     StrategyState,
+)
+from dmosopt_tpu_torch.models.refit import (
+    SurrogateRefitConfig,
+    SurrogateRefitController,
 )
 from dmosopt_tpu_torch.moasmo import get_duplicates
 from dmosopt_tpu_torch.ops import order_mo
@@ -68,6 +76,8 @@ class DistOptStrategy:
         optimizer_kwargs=None,
         surrogate_method_name: Optional[str] = "gpr",
         surrogate_method_kwargs: Optional[Dict] = None,
+        surrogate_refit=None,
+        surrogate_refit_state: Optional[Dict] = None,
         sensitivity_method_name: Optional[str] = None,
         sensitivity_method_kwargs: Optional[Dict] = None,
         feasibility_method_name=None,
@@ -88,6 +98,15 @@ class DistOptStrategy:
             population_size=population_size,
         )
         self.surrogate_method_kwargs = surrogate_method_kwargs or {}
+        # cross-epoch surrogate reuse: one controller per problem; "cold"
+        # (the default) keeps it out of the loop
+        self.surrogate_refit = surrogate_refit
+        self.refit_controller = None
+        refit_cfg = SurrogateRefitConfig.from_spec(surrogate_refit)
+        if refit_cfg.mode != "cold":
+            self.refit_controller = SurrogateRefitController(
+                refit_cfg, logger=logger, seed_state=surrogate_refit_state
+            )
         self.sensitivity_method_kwargs = sensitivity_method_kwargs or {}
         self.feasibility_method_kwargs = feasibility_method_kwargs or {}
         self.optimizer_name = as_tuple(optimizer_name)
@@ -266,6 +285,7 @@ class DistOptStrategy:
             sensitivity_method_kwargs=self.sensitivity_method_kwargs,
             feasibility_method_name=self.feasibility_method_name,
             feasibility_method_kwargs=self.feasibility_method_kwargs,
+            surrogate_refit=self.refit_controller,
             termination=self.termination,
             local_random=self.local_random, logger=self.logger,
             device=self.device,

@@ -12,6 +12,14 @@ the float32 trajectories drift apart along the flat amplitude valley of
 the NMLL while its value still agrees). Predictions
 from a fit carried over through `interop` are one kernel matrix and one
 triangular solve apart (rtol 1e-4).
+
+A warm-started single-restart fit starts exactly at the warm values in
+both packages and lands on the same hyperparameters (rtol 1e-3 after 60
+steps), as do single-restart fits of `GPR_RBF`, `EGP_Matern` (ARD, the
+reference's ``adam_lr``) and `MEGP_Matern` (one shared ARD kernel,
+`fit_gp_shared`). A float64 fit (``dtype="float64"``, no relative
+jitter) predicts and reports its NMLL as a float64 numpy solve at its
+own hyperparameters does (rtol 1e-6).
 """
 
 import numpy as np
@@ -247,8 +255,91 @@ def test_gpr_matern_runs_on_cpu_and_needs_cuda_by_default(monkeypatch):
     mean = sm.evaluate(X[:5])
     assert mean.shape == (5, 2) and bool(torch.isfinite(mean).all())
     assert sm.get_stats()["n_iter_max"] == 20
-    with pytest.raises(NotImplementedError):
-        TGP.GPR_Matern(X, Y, 3, 2, xlb, xub, predictor="matmul", device="cpu")
+    with pytest.raises(ValueError, match="predictor"):
+        TGP.GPR_Matern(X, Y, 3, 2, xlb, xub, predictor="exact", device="cpu")
+    with pytest.raises(NotImplementedError, match="mesh"):
+        TGP.GPR_Matern(X, Y, 3, 2, xlb, xub, mesh=object(), device="cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         TGP.GPR_Matern(X, Y, 3, 2, xlb, xub, n_starts=1, n_iter=5)
+
+
+def test_warm_started_fit_matches_jax():
+    X, Y = _data(N=30)
+    X, Y, tm = TGP._pad_to_bucket(X, Y)
+    ws = (np.asarray([2.0, 0.3], np.float32), np.asarray([[0.2], [1.5]], np.float32),
+          np.asarray([1e-4, 1e-3], np.float32))
+    jfit, tfit = _fit_both(X, Y, tm, n_starts=1, n_iter=60, convergence_tol=None,
+                           warm_start=ws)
+    cold = TGP.fit_gp_batch(torch.Generator().manual_seed(0), torch.as_tensor(X),
+                            torch.as_tensor(Y), train_mask=torch.as_tensor(tm),
+                            n_starts=1, n_iter=60, convergence_tol=None)
+    assert not np.allclose(tfit.amp.numpy(), cold.amp.numpy(), rtol=1e-2)
+    for name in ("amp", "ls", "noise", "nmll"):
+        np.testing.assert_allclose(
+            getattr(tfit, name).numpy(), np.asarray(getattr(jfit, name)),
+            rtol=1e-3, err_msg=name,
+        )
+
+
+def test_warm_start_shape_is_checked():
+    X, Y = _data(N=25)
+    ws = (np.ones(2), np.ones((2, 3)), np.full(2, 1e-4))  # ARD ls, isotropic fit
+    with pytest.raises(ValueError, match="warm_start"):
+        TGP.GPR_Matern(X, Y, 3, 2, np.zeros(3), np.ones(3), warm_start=ws, device="cpu")
+
+
+FAMILY = {
+    "rbf": (JGP.GPR_RBF, TGP.GPR_RBF, {"learning_rate": 0.1}),
+    "egp": (JGP.EGP_Matern, TGP.EGP_Matern, {"adam_lr": 0.05}),
+    "megp": (JGP.MEGP_Matern, TGP.MEGP_Matern, {}),
+}
+
+
+@pytest.mark.parametrize("name", sorted(FAMILY))
+def test_exact_gp_family_matches_jax(name):
+    jcls, tcls, extra = FAMILY[name]
+    X, Y = _data(N=30)
+    kw = dict(n_starts=1, n_iter=40, convergence_tol=None, seed=0, **extra)
+    jm = jcls(X, Y, 3, 2, np.zeros(3), np.ones(3), **kw)
+    tm = tcls(X, Y, 3, 2, np.zeros(3), np.ones(3), device="cpu", **kw)
+    assert tm.fit.ls.shape == tuple(jm.fit.ls.shape)
+    for field in ("amp", "ls", "noise", "nmll"):
+        np.testing.assert_allclose(
+            getattr(tm.fit, field).numpy(), np.asarray(getattr(jm.fit, field)),
+            rtol=1e-3, err_msg=field,
+        )
+    Xq = np.random.default_rng(4).random((11, 3))
+    for a, b in zip(tm.predict(Xq), jm.predict(Xq)):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-3, atol=1e-4)
+
+
+def test_float64_fit_against_a_numpy_oracle():
+    X, Y = _data(N=25)
+    sm = TGP.GPR_Matern(X, Y, 3, 2, np.zeros(3), np.ones(3), n_starts=2, n_iter=30,
+                        seed=0, dtype="float64", device="cpu")
+    assert sm.fit.L.dtype == torch.float64 and sm._rel_jitter == 0.0
+    Xq = np.random.default_rng(6).random((9, 3))
+    mean, var = sm.predict(Xq)
+    assert mean.dtype == torch.float64
+    X, Y = X.astype(np.float64), Y.astype(np.float64)
+    y_mean, y_std = Y.mean(0), Y.std(0)
+    Yn = (Y - y_mean) / y_std
+    for i in range(2):
+        amp, noise = float(sm.fit.amp[i]), float(sm.fit.noise[i])
+        ls = float(sm.fit.ls[i, 0])
+
+        def kern(A, B):
+            r = np.sqrt(np.sum((A[:, None, :] - B[None, :, :]) ** 2, -1)) / ls
+            return amp * (1 + np.sqrt(5) * r + 5 / 3 * r * r) * np.exp(-np.sqrt(5) * r)
+
+        K = kern(X, X) + (noise + 1e-6) * np.eye(len(X))
+        Ks = kern(X, Xq)
+        alpha = np.linalg.solve(K, Yn[:, i])
+        np.testing.assert_allclose(mean[:, i].numpy(), y_mean[i] + y_std[i] * Ks.T @ alpha,
+                                   rtol=1e-6)
+        v = amp + noise - np.sum(Ks * np.linalg.solve(K, Ks), 0)
+        np.testing.assert_allclose(var[:, i].numpy(), y_std[i] ** 2 * v, rtol=1e-6)
+        nmll = (0.5 * Yn[:, i] @ alpha + 0.5 * np.linalg.slogdet(K)[1]
+                + 0.5 * len(X) * np.log(2 * np.pi))
+        np.testing.assert_allclose(float(sm.fit.nmll[i]), nmll, rtol=1e-6)

@@ -123,7 +123,7 @@ def test_run_with_constraints_returns_feasible_points():
 @pytest.mark.parametrize(
     "option",
     [{"telemetry": True}, {"mesh": object()},
-     {"tenant_batching": True}, {"surrogate_refit": "warm"},
+     {"tenant_batching": True}, {"feature_dtypes": [("f", np.float32)]},
      {"optimize_mean_variance": True}, {"problem_ids": {0, 1}},
      {"jax_objective": True}],
 )
@@ -133,7 +133,7 @@ def test_unported_driver_options_raise(option):
 
 
 @pytest.mark.parametrize(
-    "option", [{"surrogate_method_name": "svgp"}, {"surrogate_method_name": "egp"},
+    "option", [{"surrogate_method_name": "svgp"}, {"surrogate_method_name": "vgp"},
                {"surrogate_method_name": "mdgp"}],
 )
 def test_unported_components_raise(option):
@@ -142,6 +142,58 @@ def test_unported_components_raise(option):
             _params(n_epochs=1, num_generations=2, **option),
             device="cpu", verbose=False,
         )
+
+
+FAST_GP = {"n_starts": 2, "n_iter": 30, "seed": 0}
+
+
+@pytest.mark.parametrize(
+    "option,check",
+    [
+        ({"surrogate_refit": "warm"}, "warm"),
+        ({"surrogate_refit": {"mode": "warm", "rank_update_after": 0}}, "rank"),
+        ({"surrogate_method_kwargs": dict(FAST_GP, predictor="matmul")}, "matmul"),
+        ({"surrogate_method_kwargs": dict(FAST_GP, predictor="nystrom",
+                                          nystrom_points=4096)}, "nystrom"),
+        ({"surrogate_method_kwargs": dict(FAST_GP, dtype="float64")}, "float64"),
+        ({"surrogate_method_name": "egp"}, "egp"),
+        ({"surrogate_method_name": "megp"}, "megp"),
+    ],
+    ids=["warm", "warm-dict", "matmul", "nystrom", "float64", "egp", "megp"],
+)
+def test_run_with_exact_gp_options(option, check):
+    """Each exact-GP option the JAX package's `run()` takes, end to end
+    (pop 24, 10 generations, 3 epochs): the option shows in the epochs'
+    stats, and the returned set meets the oracle of
+    `test_run_cycling_nsga2_and_trs_with_a_surrogate`, under a quarter
+    of the initial design's median distance to the front."""
+    opt_id = f"gp_option_{check}"
+    params = _params(opt_id=opt_id, n_initial=6, population_size=24,
+                     num_generations=10, surrogate_method_kwargs=dict(FAST_GP),
+                     random_seed=7)
+    params.update(option)
+    best = dmosopt_tpu_torch.run(params, device="cpu", verbose=False)
+    dopt = dopt_dict[opt_id]
+    stats = dopt.epoch_stats
+    paths = [s.get("refit_path") for s in stats]
+    regimes = [s["gp_predictor"] for s in stats]
+    if check in ("warm", "rank"):
+        history = dopt.optimizer_dict[0].refit_controller.path_history
+        assert history == paths and history[0] == "cold", history
+        assert check in history, history
+        assert all(s["objective"]["n_steps"] == 0 for s in stats
+                   if s["refit_path"].startswith("rank"))
+    else:
+        assert paths == [None] * 3
+    assert regimes == [check if check in ("matmul", "nystrom") else "solve"] * 3
+    if check in ("egp", "megp"):
+        assert all(s["surrogate"] == check for s in stats)
+    front = zdt1_pareto(500)
+    x_all, y_all = dopt.optimizer_dict[0].get_evals()
+    y = np.column_stack([v for _, v in best[1]])
+    d = np.median(distance_to_front(y, front))
+    d_design = np.median(distance_to_front(y_all[: 6 * N_DIM], front))
+    assert d < 0.25 * d_design, (d, d_design)
 
 
 def test_run_many_objective_age_with_fast_termination():

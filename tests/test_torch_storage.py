@@ -9,6 +9,10 @@
   epoch labels and remaining initial requests.
 - A port run saves and resumes on one file (tests/test_storage.py's
   resume oracle), and the file loads through the JAX package's reader.
+- The surrogate refit state written by either package's
+  `save_refit_state_to_h5` reads back through the other's
+  `load_refit_state_from_h5`; a warm port run stores it every epoch and
+  its resumed run's controller starts warm from it.
 """
 
 import json
@@ -313,3 +317,38 @@ def test_resample_dedupe_matches_the_jax_package():
             port_moasmo.get_duplicates(a, b, device="cpu"),
             jax_moasmo.get_duplicates(a, b),
         )
+
+
+REFIT_STATE = {
+    "amp": [1.5, 0.25], "ls": [[0.3], [2.0]], "noise": [1e-6, 3e-4],
+    "eff_noise": [1.5e-4, 3.3e-4], "stable": 2, "warm_wins": 1,
+    "fits_since_audit": 3, "n_train": 57, "n_iter_max": 200,
+}
+
+
+@pytest.mark.parametrize("writer", ["jax", "torch"])
+def test_refit_state_written_by_one_package_reads_in_the_other(tmp_path, writer):
+    fp = str(tmp_path / "refit.h5")
+    save, load = (
+        (jax_storage.save_refit_state_to_h5, port_storage.load_refit_state_from_h5)
+        if writer == "jax"
+        else (port_storage.save_refit_state_to_h5, jax_storage.load_refit_state_from_h5)
+    )
+    save("run", 0, {"amp": [0.0]}, fp)
+    save("run", 0, REFIT_STATE, fp)  # the latest epoch's state wins
+    assert load(fp, "run", 0) == REFIT_STATE
+    assert load(fp, "run", 1) is None
+
+
+def test_warm_run_stores_its_refit_state_and_resumes_warm(tmp_path):
+    fp = tmp_path / "warm.h5"
+    params = _params(fp, opt_id="torch_warm", surrogate_refit="warm", n_epochs=3)
+    dmosopt_tpu_torch.run(params, device="cpu", verbose=False)
+    first = port_driver.dopt_dict["torch_warm"].optimizer_dict[0].refit_controller
+    assert first.path_history[0] == "cold" and len(first.path_history) == 3
+    state = jax_storage.load_refit_state_from_h5(str(fp), "torch_warm", 0)
+    assert state == json.loads(json.dumps(first.export_state()))
+
+    dmosopt_tpu_torch.run(params, device="cpu", verbose=False)
+    resumed = port_driver.dopt_dict["torch_warm"].optimizer_dict[0].refit_controller
+    assert resumed.path_history[0] == "warm", resumed.path_history
