@@ -165,7 +165,32 @@ It imports nothing of JAX nor of the JAX package. Phases, in order:
    never, and keeps a distinct finite archive; the warm run's refit
    history starts cold and moves on. ``within_0.05`` is not gated: runs
    whose surrogate stays the first epoch's read within the cold runs'
-   range (``tools/refit_quality.py``).
+   range (``tools/refit_quality.py``);
+12. the sparse and deep surrogates, each run through run() with the
+   counters reset just before it and read just after, launching the
+   fused offspring kernel once per generation and the standalone
+   kernels never, with phase 4's checks (every evaluation counted, a
+   finite archive of distinct rows, a non-dominated returned set closer
+   to the ZDT1 front than the design). (a) ZDT1 with 30 parameters,
+   NSGA-II, pop 200, 100 generations, 2 epochs and a design of 150
+   points per parameter (4500 rows, timed with and without its SLH
+   decorrelation): past the 4096-row threshold every epoch fits `gpr`
+   as `svgp` (1125 inducing rows, batch 256, 400 Adam steps); printed
+   with it the sparse fit's ms an Adam step and kernel launches a step,
+   ms a predict of 200 queries, the dense `gpr` fit's ms an Adam step
+   at the 4096-row threshold, and the surrogate's error on the inner
+   EA's offspring of the last 10 generations of each epoch (mean
+   absolute error against ZDT1 over the design's standard deviation,
+   averaged over the objectives). (b) At the quick start's width (3
+   points per parameter), 2 epochs each: `vgp`, `svgp`, `spv`, `siv`,
+   `crv`, `mdgp`, `mdspp`, `mdgp` with early stopping (its steps
+   printed) and `egp` with ``large_n_threshold`` 64, which must be
+   fitted as `svgp`; the `svgp` run's offspring error must stay under
+   SPARSE_ERROR_BAR in both epochs, which a fit with a zeroed
+   variational mean fails (``tools/sparse_quality.py``). (c) The same
+   with `svgp` and ``optimize_mean_variance``: the resampled rows carry
+   4 finite prediction columns. Each epoch's surrogate, fit wall, Adam
+   steps, EA wall and logged accuracy are printed.
 
 ``python3 chip_smoke.py --phases 2,9,10`` runs the named phases only
 (phase 1 always), without the kernels and result lines.
@@ -1764,6 +1789,351 @@ def reusing_surrogate(torch, V, smi):
     return refit_e2e(torch, V, smi)
 
 
+# the sparse and deep surrogates (phase 12): (a) a run whose design
+# alone passes the dense-kernel threshold of 4096 rows (150 points per
+# parameter of ZDT1's 30: 4500 rows), so every epoch reroutes `gpr` to
+# `svgp` (1125 inducing rows, batch 256, 400 Adam steps); (b) each new
+# registry name at the quick start's width; (c) mean-variance
+SPARSE_DIM, SPARSE_POP, SPARSE_GENERATIONS, SPARSE_EPOCHS = 30, 200, 100, 2
+SPARSE_N_INITIAL = 150
+SPARSE_NAMES = ("vgp", "svgp", "spv", "siv", "crv", "mdgp", "mdspp")
+# the quality gate: both epochs of (b)'s `svgp` run must read a surrogate
+# error on the inner EA's offspring of their last SPARSE_LAST_GENERATIONS
+# generations (the mean over the objectives of the mean absolute error
+# against ZDT1 over the standard deviation of the design's objective
+# values) below this bar, which a fit whose variational mean is zeroed
+# fails. The large-archive run is printed, not gated: at 4500 rows the
+# sparse fit of both packages settles on the all-noise solution (a
+# lengthscale near 0.23, an amplitude near 0.016, noise near 0.64) and
+# predicts the archive mean, as the zeroed copy does; and its resampled
+# rows are archived rows in both packages, whose logged predictions are
+# their archived values (tools/sparse_quality.py; PERF.md section 6)
+SPARSE_ERROR_BAR = 0.75
+SPARSE_LAST_GENERATIONS = 10
+# Adam steps timed for the dense `gpr` fit at the threshold's 4096 rows
+DENSE_STEPS = (5, 10)
+
+
+def sparse_params(opt_id, obj_fun, n_initial=None, **over):
+    """Phase 12's configuration: ZDT1 with 30 parameters, NSGA-II, pop
+    200, 100 generations, 2 epochs, ``n_initial`` points per parameter
+    (150: 4500 rows, rerouted to `svgp`), `gpr` defaults, seed 0."""
+    params = {
+        "opt_id": opt_id, "obj_fun": obj_fun, "objective_names": ["f1", "f2"],
+        "space": {f"x{i:02d}": [0.0, 1.0] for i in range(SPARSE_DIM)},
+        "problem_parameters": {},
+        "n_initial": SPARSE_N_INITIAL if n_initial is None else n_initial,
+        "n_epochs": SPARSE_EPOCHS,
+        "population_size": SPARSE_POP, "num_generations": SPARSE_GENERATIONS,
+        "optimizer_name": "nsga2", "surrogate_method_name": "gpr", "random_seed": 0,
+    }
+    params.update(over)
+    return params
+
+
+def new_rows(rows, archive):
+    """Mask of ``rows`` that equal, in float32, neither a row of
+    ``archive`` nor an earlier row of ``rows``: the EA works in float32,
+    so an archived row it resamples comes back rounded. Host numpy."""
+    import numpy as np
+
+    seen = {r.tobytes() for r in np.asarray(archive, np.float32)}
+    new = np.zeros(len(rows), dtype=bool)
+    for i, r in enumerate(np.asarray(rows, np.float32)):
+        new[i] = r.tobytes() not in seen
+        seen.add(r.tobytes())
+    return new
+
+
+def zdt1_host(x):
+    """ZDT1 of the rows of ``x`` in float64 numpy, for either package's
+    host copies of its rows."""
+    import numpy as np
+
+    x = np.asarray(x, np.float64)
+    f1 = x[:, 0]
+    g = 1.0 + 9.0 * np.mean(x[:, 1:], axis=1)
+    return np.column_stack([f1, g * (1.0 - np.sqrt(f1 / g))])
+
+
+def offspring_mae(res, last=SPARSE_LAST_GENERATIONS):
+    """Per-objective mean absolute error of the surrogate's values (mean
+    columns) of the inner EA's offspring of the last ``last`` generations
+    of an epoch (its `EpochResults` ``x``, ``y`` and ``gen_index``),
+    against ZDT1 of those rows."""
+    import numpy as np
+
+    gen = np.asarray(res.gen_index)
+    rows = gen > max(int(gen.max()) - last, 0)
+    x, pred = np.asarray(res.x)[rows], np.asarray(res.y)[rows][:, :2]
+    return [float(v) for v in np.mean(np.abs(zdt1_host(x) - pred), axis=0)]
+
+
+class capture_epoch_results:
+    """Keep each epoch's `EpochResults` that ``driver_cls`` hands its
+    ``_finish_problem_epoch`` (either package's driver), for the
+    duration of a ``with`` block."""
+
+    def __init__(self, driver_cls):
+        self.cls, self.results = driver_cls, []
+
+    def __enter__(self):
+        self.original = original = self.cls._finish_problem_epoch
+        results = self.results
+
+        def finish(dopt, problem_id, epoch, advance_epoch, res, *args):
+            results.append(res)
+            return original(dopt, problem_id, epoch, advance_epoch, res, *args)
+
+        self.cls._finish_problem_epoch = finish
+        return self
+
+    def __exit__(self, *exc):
+        self.cls._finish_problem_epoch = self.original
+        return False
+
+
+def sparse_error(mae, y_design):
+    """The gate's reading: the mean over the objectives of a per-objective
+    mean absolute error over the standard deviation of the design's
+    objective values."""
+    import numpy as np
+
+    return float(np.mean(np.asarray(mae) / np.std(np.asarray(y_design), axis=0)))
+
+
+def _check_front_run(dopt, best, n0, label):
+    """Phase 4's checks of a run's result, for archives too large for a
+    pairwise distance matrix: every evaluation but the design's first
+    epoch counted, the archive finite and each row once, the returned
+    set finite and non-dominated, and closer to the ZDT1 front than the
+    design (median distance). Returns (returned, design) distances."""
+    import numpy as np
+
+    from dmosopt_tpu_torch.benchmarks.zdt import distance_to_front, zdt1_pareto
+
+    x_all, y_all = dopt.optimizer_dict[0].get_evals()
+    n_resample = int(dopt.population_size * dopt.resample_fraction)
+    n_epochs = len(dopt.epoch_stats)
+    assert n0 < dopt.eval_count <= n0 + (n_epochs - 1) * n_resample, (label, dopt.eval_count)
+    assert np.all(np.isfinite(x_all)) and np.all(np.isfinite(y_all)), label
+    assert np.unique(x_all, axis=0).shape[0] == x_all.shape[0] <= dopt.eval_count, label
+    y = np.column_stack([v for _, v in best[1]])
+    assert y.shape[0] > 0 and np.all(np.isfinite(y)), label
+    le = np.all(y[:, None, :] <= y[None, :, :], axis=2)
+    lt = np.any(y[:, None, :] < y[None, :, :], axis=2)
+    assert not np.any(le & lt), f"{label}: returned set is dominated"
+    front = zdt1_pareto(1000)
+    d_best = float(np.median(distance_to_front(y, front)))
+    d_init = float(np.median(distance_to_front(y_all[:n0], front)))
+    assert d_best < d_init, (label, d_best, d_init)
+    return d_best, d_init
+
+
+def _sparse_run(torch, V, smi, label, params, n0):
+    """One phase-12 run through run(): the fused kernel launches once a
+    generation and the standalone kernels never; phase 4's checks; each
+    epoch's surrogate, fit wall, Adam steps, EA wall and accuracy
+    printed. Returns (launches, the DistOptimizer, each epoch's
+    `EpochResults`)."""
+    import dmosopt_tpu_torch
+    from dmosopt_tpu_torch.driver import DistOptimizer, dopt_dict
+
+    V.reset_kernel_launches()
+    t0 = time.perf_counter()
+    with capture_epoch_results(DistOptimizer) as cap:
+        best = dmosopt_tpu_torch.run(params, verbose=False)
+    wall = time.perf_counter() - t0
+    launches = dict(V.KERNEL_LAUNCHES)
+    dopt = dopt_dict[params["opt_id"]]
+    n_gen = sum(s["n_generations"] for s in dopt.epoch_stats)
+    assert n_gen == SPARSE_GENERATIONS * len(dopt.epoch_stats), (label, n_gen)
+    assert launches == {"offspring": n_gen, "sbx": 0, "mutation": 0}, (label, launches)
+    d_best, d_init = _check_front_run(dopt, best, n0, label)
+    for s in dopt.epoch_stats:
+        fit = s.get("objective", {})
+        print(f"[{smi}] {label} epoch {s['epoch']}: {s['surrogate']} on {s['n_train']} rows, "
+              f"fit {s['train_s']:.3f} s ({fit.get('n_steps')} Adam steps, "
+              f"early stopped {s.get('fit_early_stopped')}), EA {s['optimize_s']:.3f} s; "
+              f"accuracy {s.get('surrogate_accuracy')}")
+    print(f"[{smi}] {label}: run() {wall:.3f} s, {dopt.eval_count} evaluations, "
+          f"median distance to the front {d_best:.4f} (design {d_init:.4f}); kernel "
+          f"launches {launches}")
+    return launches, dopt, cap.results
+
+
+def _fit_step_readings(torch, smi, X, Y, **fit_kw):
+    """ms an Adam step of `fit_svgp` at the run's shapes (the difference of
+    two fits of 20 and 60 steps over 40, synchronized), the kernel
+    launches a step (torch.profiler's cudaLaunchKernel count over 10
+    profiled steps, those of a 0-step fit taken off), and ms a predict of
+    200 queries on the 60-step fit (median of 5, synchronized)."""
+    from dmosopt_tpu_torch.models.svgp import fit_svgp, svgp_predict
+
+    def fit(n_iter):
+        return fit_svgp(torch.Generator(device="cuda").manual_seed(0), X, Y,
+                        n_iter=n_iter, **fit_kw)
+
+    def walled(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0, out
+
+    fit(2)
+    t20, _ = walled(lambda: fit(20))
+    t60, fitted = walled(lambda: fit(60))
+    ms_step = 1e3 * (t60 - t20) / 40
+
+    def launches(n_iter):
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            fit(n_iter)
+            torch.cuda.synchronize()
+        return sum(e.count for e in prof.key_averages() if "LaunchKernel" in e.key)
+
+    per_step = (launches(10) - launches(0)) / 10
+    Xq = torch.rand((200, X.shape[1]), generator=torch.Generator(device="cuda").manual_seed(1),
+                    device="cuda")
+    predict_ms = sorted(walled(lambda: svgp_predict(fitted, Xq))[0] for _ in range(5))[2] * 1e3
+    print(f"[{smi}] svgp fit at N={X.shape[0]}, {fit_kw}: {ms_step:.3f} ms an Adam step, "
+          f"{per_step:.1f} kernel launches a step; predict of 200 queries {predict_ms:.3f} ms")
+    return ms_step, per_step, predict_ms
+
+
+def sparse_large_archive(torch, V, smi):
+    """Phase 12 (a): 4500 design rows, `gpr` rerouted to `svgp` every
+    epoch, its surrogate error printed; the fit's and the predict's
+    readings; the design time; the dense `gpr` fit at the threshold's
+    4096 rows. Returns the launch counts."""
+    import numpy as np
+
+    from dmosopt_tpu_torch import moasmo, sampling
+    from dmosopt_tpu_torch.benchmarks.zdt import zdt1
+    from dmosopt_tpu_torch.models.gp import GPR_Matern
+
+    n0 = SPARSE_N_INITIAL * SPARSE_DIM
+    t0 = time.perf_counter()
+    sampling.slh(n0, SPARSE_DIM, np.random.default_rng(0), maxiter=5)
+    t1 = time.perf_counter()
+    sampling.slh(n0, SPARSE_DIM, np.random.default_rng(0), maxiter=0)
+    t2 = time.perf_counter()
+    print(f"[{smi}] design of {n0} rows (SLH, 5 decorrelation rounds): {t1 - t0:.3f} s, "
+          f"of it {t1 - t0 - (t2 - t1):.3f} s the decorrelation")
+
+    params = sparse_params("sparse_large_archive", zdt1, torch_objective=True)
+    launches, dopt, results = _sparse_run(torch, V, smi, "large archive", params, n0)
+    stats = dopt.epoch_stats
+    assert [s["surrogate"] for s in stats] == ["svgp"] * SPARSE_EPOCHS, stats
+    # a quarter of the deduplicated rows (1125 for the design), at least 100
+    assert all(s["objective"]["n_inducing"] == max(int(0.25 * s["n_train"]), 100)
+               for s in stats), [s["objective"] for s in stats]
+    x_all, y_all = dopt.optimizer_dict[0].get_evals()
+    acc = stats[1]["surrogate_accuracy"]
+    x_fold = dopt.optimizer_dict[0].folded_evals[0]
+    n_new = int(new_rows(x_fold, x_all[:n0]).sum())
+    errors = [sparse_error(offspring_mae(res), y_all[:n0]) for res in results]
+    print(f"[{smi}] large archive: {n_new} of {acc['n_rows']} resampled rows not in "
+          f"the design, the logged error on all of them {acc['mae']}; error on the "
+          f"last {SPARSE_LAST_GENERATIONS} generations' offspring, epochs 0 and 1: "
+          f"{errors} (bar {SPARSE_ERROR_BAR})")
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    X = torch.rand((n0, SPARSE_DIM), generator=gen, device="cuda")
+    Yz = zdt1(X)
+    Y = (Yz - Yz.mean(0)) / Yz.std(0)
+    readings = _fit_step_readings(torch, smi, X, Y, n_inducing=n0 // 4,
+                                  share_kernel=True, share_inducing=True)
+
+    # the dense fit at the threshold, where it stays dense
+    n_dense = moasmo.LARGE_N_THRESHOLD
+    xd, yd = X[:n_dense].cpu().numpy(), Yz[:n_dense].cpu().numpy()
+    walls = []
+    for n_iter in DENSE_STEPS:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        GPR_Matern(xd, yd, SPARSE_DIM, 2, np.zeros(SPARSE_DIM), np.ones(SPARSE_DIM),
+                   n_iter=n_iter, seed=0)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    dense_ms = 1e3 * (walls[1] - walls[0]) / (DENSE_STEPS[1] - DENSE_STEPS[0])
+    print(f"[{smi}] dense gpr fit at N={n_dense} (8 starts): {dense_ms:.3f} ms an Adam "
+          f"step (fits of {DENSE_STEPS[0]} and {DENSE_STEPS[1]} steps: "
+          f"{walls[0]:.3f} s, {walls[1]:.3f} s); svgp at N={n0}: {readings[0]:.3f} ms")
+    return launches
+
+
+def sparse_names(torch, V, smi):
+    """Phase 12 (b): each new name through run() at the quick start's
+    width, mdgp once more with early stopping, and egp past a threshold
+    of 64 rows (rerouted to svgp). Returns each run's launch counts and
+    the `svgp` run's offspring errors (the quality gate's reading)."""
+    from dmosopt_tpu_torch.benchmarks.zdt import zdt1
+
+    n0 = 3 * SPARSE_DIM
+    runs = [(name, name, {}) for name in SPARSE_NAMES]
+    runs += [("mdgp_early_stopping", "mdgp", {"early_stopping": True}),
+             ("egp_rerouted", "egp", {"large_n_threshold": 64})]
+    out, gate = {}, None
+    for label, name, kw in runs:
+        params = sparse_params(f"sparse_{label}", zdt1, n_initial=3, torch_objective=True,
+                               surrogate_method_name=name, surrogate_method_kwargs=kw)
+        out[label], dopt, results = _sparse_run(torch, V, smi, label, params, n0)
+        routed = "svgp" if label == "egp_rerouted" else name
+        assert [s["surrogate"] for s in dopt.epoch_stats] == [routed] * SPARSE_EPOCHS
+        acc = dopt.epoch_stats[1]["surrogate_accuracy"]
+        assert acc["n_rows"] > 0 and all(map(lambda v: v == v, acc["mae"])), acc
+        _, y_all = dopt.optimizer_dict[0].get_evals()
+        errors = [sparse_error(offspring_mae(r), y_all[:n0]) for r in results]
+        print(f"[{smi}] {label}: error on the last {SPARSE_LAST_GENERATIONS} "
+              f"generations' offspring, epochs 0 and 1: {errors}; on the resampled "
+              f"rows {sparse_error(acc['mae'], y_all[:n0]):.4f}")
+        if label == "svgp":
+            gate = errors
+        if label == "mdgp_early_stopping":
+            print(f"[{smi}] mdgp with early stopping: Adam steps "
+                  f"{[s['fit_n_steps'] for s in dopt.epoch_stats]}, early stopped "
+                  f"{[s['fit_early_stopped'] for s in dopt.epoch_stats]}")
+    return out, gate
+
+
+def sparse_mean_variance(torch, V, smi):
+    """Phase 12 (c): the quick start with ``optimize_mean_variance`` and
+    `svgp`: the EA ranks 4 columns, the resampled rows carry 4 finite
+    prediction columns (variances non-negative), and the accuracy log
+    reads the 2 mean columns."""
+    import numpy as np
+
+    from dmosopt_tpu_torch.benchmarks.zdt import zdt1
+
+    params = sparse_params("sparse_mean_variance", zdt1, n_initial=3, torch_objective=True,
+                           surrogate_method_name="svgp", optimize_mean_variance=True)
+    launches, dopt, _ = _sparse_run(torch, V, smi, "mean-variance", params, 3 * SPARSE_DIM)
+    strat = dopt.optimizer_dict[0]
+    pred = strat.folded_evals[2]
+    assert pred.shape[1] == 4 and np.all(np.isfinite(pred)), pred.shape
+    assert np.all(pred[:, 2:] >= 0.0)
+    acc = dopt.epoch_stats[1]["surrogate_accuracy"]
+    assert len(acc["mae"]) == 2, acc
+    print(f"[{smi}] mean-variance: {pred.shape[0]} resampled rows with {pred.shape[1]} "
+          f"prediction columns, variances {pred[:, 2:].min():.3e} to {pred[:, 2:].max():.3e}")
+    return launches
+
+
+def sparse_surrogates(torch, V, smi):
+    """Phase 12: the sparse and deep surrogates. The quality gate is held
+    last, after every run printed its readings. Returns each run's kernel
+    launch counts."""
+    launches = {"large_archive": sparse_large_archive(torch, V, smi)}
+    names, gate = sparse_names(torch, V, smi)
+    launches.update(names)
+    launches["mean_variance"] = sparse_mean_variance(torch, V, smi)
+    print(f"[{smi}] quality gate: svgp's offspring errors {gate} (bar {SPARSE_ERROR_BAR})")
+    assert max(gate) < SPARSE_ERROR_BAR, ("svgp surrogate error", gate)
+    return launches
+
+
 def _requested_phases(argv):
     """The phases of ``--phases 2,9,10``, or None for the whole script."""
     if not argv:
@@ -1797,7 +2167,8 @@ def main() -> int:
         # with no kernels line and no result line
         runs = {2: check_kernels, 3: direct_ea, 4: quick_start, 5: file_backed,
                 6: many_objective, 7: lorenz_run, 8: config5_loop,
-                9: constrained_run, 10: sa_run, 11: reusing_surrogate}
+                9: constrained_run, 10: sa_run, 11: reusing_surrogate,
+                12: sparse_surrogates}
         for p in sorted(phases):
             t0 = time.perf_counter()
             fn = runs[p]
@@ -1824,8 +2195,11 @@ def main() -> int:
     t4 = time.perf_counter()
     launches_refit = reusing_surrogate(torch, V, smi)
     t5 = time.perf_counter()
+    launches_sparse = sparse_surrogates(torch, V, smi)
+    t6 = time.perf_counter()
     print(f"[{smi}] phase 7 {t1 - t0:.1f} s, phase 8 {t2 - t1:.1f} s, phase 9 "
-          f"{t3 - t2:.1f} s, phase 10 {t4 - t3:.1f} s, phase 11 {t5 - t4:.1f} s")
+          f"{t3 - t2:.1f} s, phase 10 {t4 - t3:.1f} s, phase 11 {t5 - t4:.1f} s, "
+          f"phase 12 {t6 - t5:.1f} s")
     assert "jax" not in sys.modules and "dmosopt_tpu" not in sys.modules
 
     kernels = []
@@ -1845,6 +2219,7 @@ def main() -> int:
             "launches_constrained_run": launches_constrained[name],
             "launches_sa_run": launches_sa[name],
             "launches_refit_runs": {m: n[name] for m, n in launches_refit.items()},
+            "launches_sparse_runs": {m: n[name] for m, n in launches_sparse.items()},
             "max_abs_err": max(r["max_abs_err"] for r in rep["rows"].values()),
             "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
             "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],

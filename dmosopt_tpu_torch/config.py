@@ -1,9 +1,8 @@
 """Registry of shorthand names -> import paths, and string-path imports.
 
-Port of ``dmosopt_tpu/config.py`` (reference dmosopt/config.py:5-48). The
-registries name only what the port carries; any other shorthand is
-resolved as an import path and, failing that, raises
-`NotImplementedError`.
+Port of ``dmosopt_tpu/config.py`` (reference dmosopt/config.py:5-48),
+with the same shorthand names. Any other name is resolved as an import
+path and, failing that, raises `NotImplementedError`.
 """
 
 import importlib
@@ -39,6 +38,13 @@ default_surrogate_methods = {
     "gpr": "dmosopt_tpu_torch.models.gp.GPR_Matern",
     "egp": "dmosopt_tpu_torch.models.gp.EGP_Matern",
     "megp": "dmosopt_tpu_torch.models.gp.MEGP_Matern",
+    "mdgp": "dmosopt_tpu_torch.models.deep_gp.MDGP_Matern",
+    "mdspp": "dmosopt_tpu_torch.models.deep_gp.MDSPP_Matern",
+    "vgp": "dmosopt_tpu_torch.models.svgp.VGP_Matern",
+    "svgp": "dmosopt_tpu_torch.models.svgp.SVGP_Matern",
+    "spv": "dmosopt_tpu_torch.models.svgp.SPV_Matern",
+    "siv": "dmosopt_tpu_torch.models.svgp.SIV_Matern",
+    "crv": "dmosopt_tpu_torch.models.svgp.CRV_Matern",
 }
 
 default_sa_methods = {

@@ -23,12 +23,16 @@ rounds to the initial design until it returns None.
 ``surrogate_refit`` ("cold", "warm", or a dict of
 `SurrogateRefitConfig` options) reuses the surrogate across epochs;
 with ``save`` its warm state goes into the store after every epoch, in
-the JAX package's format, and a resumed run starts from it. The driver
-options of the JAX package that this port does not carry yet raise
-`NotImplementedError` instead of being ignored: several problems
-(``problem_ids``), features, custom surrogate training, mean-variance
-optimization, ``jax_objective``, an external ``evaluator``, meshes,
-tenant batching and telemetry. A store written with features or
+the JAX package's format, and a resumed run starts from it.
+``optimize_mean_variance`` makes the inner EA rank the surrogate's mean
+and variance, with 2·d prediction columns in the archive and the store.
+Each epoch after the first logs the surrogate's error on the rows it
+resampled (`_log_surrogate_accuracy`, kept in ``epoch_stats``). The
+driver options of the JAX package that this port does not carry yet
+raise `NotImplementedError` instead of being ignored: several problems
+(``problem_ids``), features, custom surrogate training,
+``jax_objective``, an external ``evaluator``, meshes, tenant batching
+and telemetry. A store written with features or
 several problems cannot be resumed here either.
 """
 
@@ -125,7 +129,7 @@ class _InflightBatch:
 # that means "not used"
 _UNPORTED_DEFAULTS = {
     "problem_ids": None, "feature_dtypes": None, "feature_class": None,
-    "surrogate_custom_training": None, "optimize_mean_variance": False,
+    "surrogate_custom_training": None,
     "jax_objective": False, "evaluator": None, "mesh": None,
     "tenant_batching": False,
 }
@@ -156,7 +160,7 @@ class DistOptimizer:
         sensitivity_method_name=None, sensitivity_method_kwargs=None,
         feasibility_method_name=None, feasibility_method_kwargs=None,
         dynamic_initial_sampling=None, dynamic_initial_sampling_kwargs=None,
-        surrogate_refit=None, telemetry=None,
+        surrogate_refit=None, optimize_mean_variance=False, telemetry=None,
         random_seed=None, local_random=None,
         file_path=None, save=False, save_eval=10,
         save_surrogate_evals=False, save_optimizer_params=True,
@@ -185,6 +189,9 @@ class DistOptimizer:
           updates once the hyperparameters settle, restart pruning and
           audit fits), a dict of `SurrogateRefitConfig` options with
           ``"mode"``, or a config.
+        optimize_mean_variance: the inner EA ranks the surrogate's mean and
+          variance (2·d columns); the archive's and the store's prediction
+          columns are then 2·d wide.
         dynamic_initial_sampling: import path of an epoch-0 sampler,
           called with ``file_path``, ``iteration``, ``evaluated_samples``,
           ``next_samples``, ``sampler`` and ``dynamic_initial_sampling_kwargs``;
@@ -224,6 +231,7 @@ class DistOptimizer:
             termination_conditions=termination_conditions,
             surrogate_method_name=surrogate_method_name,
             surrogate_refit=surrogate_refit,
+            optimize_mean_variance=bool(optimize_mean_variance),
             local_random=local_random, random_seed=random_seed,
             time_limit=time_limit, n_initial=n_initial,
             initial_maxiter=initial_maxiter, initial_method=initial_method,
@@ -338,6 +346,7 @@ class DistOptimizer:
                 self.param_names, self.objective_names, None,
                 self.constraint_names, self.problem_parameters, self.metadata,
                 self.random_seed, self.file_path,
+                surrogate_mean_variance=self.optimize_mean_variance,
             )
 
     # --------------------------------------------------------- init helpers
@@ -451,6 +460,7 @@ class DistOptimizer:
             sensitivity_method_kwargs=self.sensitivity_method_kwargs,
             feasibility_method_name=self.feasibility_method_name,
             feasibility_method_kwargs=self.feasibility_method_kwargs,
+            optimize_mean_variance=self.optimize_mean_variance,
             local_random=self.local_random, logger=self.logger,
             device=self.device,
         )
@@ -540,8 +550,10 @@ class DistOptimizer:
             self._writer = None
 
     def save_evals(self):
-        """Append the finished evaluations to the store."""
-        n_pred = len(self.objective_names)
+        """Append the finished evaluations to the store, the predictions
+        2·d wide with ``optimize_mean_variance``."""
+        n = len(self.objective_names)
+        n_pred = 2 * n if self.optimize_mean_variance else n
         finished = {}
         for problem_id in self.problem_ids:
             rows = self.storage_dict[problem_id]
@@ -568,6 +580,7 @@ class DistOptimizer:
                 self.constraint_names, self.param_space, finished,
                 self.problem_parameters, self.metadata, self.random_seed,
                 self.file_path, self.logger,
+                surrogate_mean_variance=self.optimize_mean_variance,
             )
 
     def save_surrogate_evals(self, problem_id, epoch, gen_index, x_sm, y_sm):
@@ -842,6 +855,11 @@ class DistOptimizer:
         if self.dynamic_initial_sampling is not None and self.epoch_count == 0:
             self._drain_dynamic_initial_samples(strat)
         strat.initialize_epoch(epoch)
+        accuracy = None
+        if self.epoch_count > 0 and strat.folded_evals is not None:
+            # the rows the previous epoch's surrogate scheduled, folded
+            # into the archive as this epoch opened
+            accuracy = self._log_surrogate_accuracy(0, epoch - 1, strat.folded_evals)
         self.stats["init_sampling_end"] = time.time()
         done = completed_epoch
         while not done:
@@ -862,6 +880,7 @@ class DistOptimizer:
                 k: n - launches0.get(k, 0) for k, n in KERNEL_LAUNCHES.items()
             },
             **strat.stats,
+            **({} if accuracy is None else {"surrogate_accuracy": accuracy}),
         })
         if self.save:
             self.save_stats(0, epoch)
@@ -871,6 +890,37 @@ class DistOptimizer:
         self._flush_writes()
         self.epoch_count += 1
         return self.epoch_count
+
+    def _log_surrogate_accuracy(self, problem_id, fit_epoch, completed_evals):
+        """Per-objective mean absolute error of the predictions that
+        scheduled a batch of real evaluations (reference dmosopt.py:1420-1449;
+        ``dmosopt_tpu/driver.py:1395-1417``): constrained runs keep the
+        feasible rows when there are any, only the mean columns of a
+        mean-variance prediction count, and a non-finite value leaves its
+        cell out. Logged, and returned as ``{"fit_epoch", "n_rows",
+        "mae"}`` for ``epoch_stats``; None for an empty batch.
+
+        The JAX package calls it with the evaluations `update_epoch`
+        returns, which are None on the surrogate path (the epoch's opening
+        `initialize_epoch` has folded them), so it logs nothing there;
+        here each epoch after the first logs the rows that opening folded."""
+        _, y, pred, _, c = completed_evals
+        if c is not None:
+            keep = np.all(c > 0.0, axis=1)
+            if keep.any():
+                y, pred = y[keep], pred[keep]
+        if y.shape[0] == 0:
+            return None
+        pred = pred[:, : y.shape[1]]  # mean columns in mean-variance mode
+        valid = np.isfinite(y) & np.isfinite(pred)
+        counts = valid.sum(axis=0)
+        err = np.where(valid, np.abs(y - pred), 0.0).sum(axis=0)
+        mae = [float(e / k) if k else float("nan") for e, k in zip(err, counts)]
+        self.logger.info(
+            f"surrogate accuracy at epoch {fit_epoch} for "
+            f"problem {problem_id} was {mae}"
+        )
+        return {"fit_epoch": int(fit_epoch), "n_rows": int(y.shape[0]), "mae": mae}
 
     def _finish_problem_epoch(self, problem_id, epoch, advance_epoch, res):
         """Persist the surrogate's evaluations and the optimizer's

@@ -1,8 +1,9 @@
 """State carried across from the JAX package, as plain numpy.
 
 Builds the port's GP fit (with a mesh-sharded fit's ``whitened``
-factor), a Nyström predictor cache, NSGA-II, AGE-MOEA, MO-CMA-ES, SMPSO
-and TRS states and a fitted feasibility model from dicts of numpy arrays,
+factor), a Nyström predictor cache, a sparse variational fit, a
+deep-kernel GP fit, NSGA-II, AGE-MOEA, MO-CMA-ES, SMPSO and TRS states
+and a fitted feasibility model from dicts of numpy arrays,
 e.g. ``{k: np.asarray(v) for k, v in fit._asdict().items()}`` of a JAX
 `GPFit` or `NSGA2State`, so the same numbers can go through both
 packages. Only numpy crosses the boundary; nothing here imports JAX.
@@ -14,7 +15,9 @@ import numpy as np
 import torch
 
 from dmosopt_tpu_torch.feasibility import LogisticFeasibilityModel
-from dmosopt_tpu_torch.models.gp import GPFit
+from dmosopt_tpu_torch.models.deep_gp import DeepGPFit, DeepGPParams, MLPParams
+from dmosopt_tpu_torch.models.gp import _KERNELS, GPFit, _Bounds
+from dmosopt_tpu_torch.models.svgp import SVGPFit, SVGPParams, _kuu_factor
 from dmosopt_tpu_torch.models.predictor import NystromCache
 from dmosopt_tpu_torch.optimizers.agemoea import AGEMOEAState
 from dmosopt_tpu_torch.optimizers.cmaes import CMAESState
@@ -39,6 +42,50 @@ def gp_fit_from_arrays(d: dict, device) -> GPFit:
     fit = GPFit(**{k: _tensor(v, device) for k, v in d.items()})
     fit.n_steps = None if n_steps is None else int(n_steps)
     return fit
+
+
+def _bounds(pair, device) -> _Bounds:
+    return _Bounds(*(_tensor(v, device) for v in pair))
+
+
+def svgp_fit_from_arrays(d: dict, device) -> SVGPFit:
+    """A float32 `SVGPFit` on ``device`` from the JAX fit's parameter
+    fields (``fit.params._asdict()``, ``W`` None without a
+    coregionalization), its bounds as (lo, hi) pairs under
+    ``bounds_amp``, ``bounds_ls`` and ``bounds_noise``, ``elbo`` and
+    ``kernel``. The factor of K_uu at these parameters is made here, as
+    `fit_svgp` makes it."""
+    params = SVGPParams(**{
+        k: None if d.get(k) is None else _tensor(d[k], device)
+        for k in SVGPParams._fields
+    })
+    b_amp, b_ls, b_noise = (
+        _bounds(d[k], device) for k in ("bounds_amp", "bounds_ls", "bounds_noise")
+    )
+    kernel = str(d.get("kernel", "matern52"))
+    Luu = _kuu_factor(b_amp.forward(params.u_amp), b_ls.forward(params.u_ls),
+                      params.Z, _KERNELS[kernel])
+    return SVGPFit(params, b_amp, b_ls, b_noise, _tensor(d["elbo"], device), kernel, Luu)
+
+
+def deep_gp_fit_from_arrays(d: dict, device) -> DeepGPFit:
+    """A float32 `DeepGPFit` on ``device`` from the JAX fit's fields: the
+    MLP's ``weights`` and ``biases`` (lists, one per layer), ``u_amp``,
+    ``u_ls``, ``u_noise``, ``X``, ``F``, ``L``, ``alpha``, ``y_mean``,
+    ``y_std``, ``nmll`` and the bounds as (lo, hi) pairs under
+    ``bounds_amp``, ``bounds_ls`` and ``bounds_noise``."""
+    t = lambda k: _tensor(d[k], device)  # noqa: E731
+    mlp = MLPParams(tuple(_tensor(w, device) for w in d["weights"]),
+                    tuple(_tensor(b, device) for b in d["biases"]))
+    return DeepGPFit(
+        params=DeepGPParams(mlp, t("u_amp"), t("u_ls"), t("u_noise")),
+        X=t("X"), F=t("F"), L=t("L"), alpha=t("alpha"),
+        y_mean=t("y_mean"), y_std=t("y_std"),
+        bounds_amp=_bounds(d["bounds_amp"], device),
+        bounds_ls=_bounds(d["bounds_ls"], device),
+        bounds_noise=_bounds(d["bounds_noise"], device),
+        nmll=t("nmll"), n_steps=int(d.get("n_steps", 0)),
+    )
 
 
 def nystrom_cache_from_arrays(d: dict, device) -> NystromCache:

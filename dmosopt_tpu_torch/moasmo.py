@@ -18,14 +18,17 @@ A termination criterion is checked on the host every
 ``termination_check_interval`` generations, as in the JAX package.
 Epochs are still driven through the reference's suspended-generator
 protocol (MOASMO.py:248,422). `train` takes a per-problem
-`SurrogateRefitController` (warm and rank-k refits) and builds the
-surrogate's predictor inside the timed train phase. The JAX engine's
-custom training, mean-variance optimization, meshes and telemetry are
-not ported.
+`SurrogateRefitController` (warm and rank-k refits), builds the
+surrogate's predictor inside the timed train phase, and past
+``large_n_threshold`` training rows reroutes a dense-kernel surrogate to
+``svgp`` (`_route_large_n`). With ``optimize_mean_variance`` the EA ranks
+the surrogate's mean and variance, 2·d columns. The JAX engine's custom
+training, meshes and telemetry are not ported.
 """
 
 from __future__ import annotations
 
+import inspect
 import itertools
 import time
 from typing import Any, Dict, Optional, Tuple
@@ -115,14 +118,24 @@ def _to_np(t: torch.Tensor) -> np.ndarray:
 
 
 def _surrogate_eval_fn(mdl: Model):
-    """A batch objective on device tensors from the fitted surrogate."""
+    """A batch objective on device tensors from the fitted surrogate
+    (``dmosopt_tpu/moasmo.py:197-212``): the mean, or with
+    ``return_mean_variance`` the (N, 2·d) columns [mean, variance]."""
     obj = mdl.objective
 
-    def eval_fn(x):
-        out = obj.evaluate(x)
-        out = out[0] if isinstance(out, tuple) else out
-        # a float64 surrogate answers in float64; the EA stays in x's dtype
-        return out.to(x.dtype)
+    if mdl.return_mean_variance:
+
+        def eval_fn(x):
+            mean, var = obj.predict(x)
+            return torch.cat([mean, var], dim=1).to(x.dtype)
+
+    else:
+
+        def eval_fn(x):
+            out = obj.evaluate(x)
+            out = out[0] if isinstance(out, tuple) else out
+            # a float64 surrogate answers in float64; the EA stays in x's dtype
+            return out.to(x.dtype)
 
     return eval_fn
 
@@ -300,9 +313,10 @@ def optimize(
     ``stats`` receives the surrogate branch's loop statistics.
 
     The numpy stream of ``local_random`` is consumed in the reference's
-    order: loop generator, initial design, optimizer state."""
-    if optimize_mean_variance:
-        raise NotImplementedError("optimize_mean_variance is not ported")
+    order: loop generator, initial design, optimizer state.
+    ``optimize_mean_variance`` is the model's business here: its
+    ``return_mean_variance`` surrogate answers 2·d columns, which the
+    optimizer ranks (`_surrogate_eval_fn`)."""
     generator = as_torch_generator(local_random, optimizer.device)
     bounds = np.column_stack((np.asarray(xlb), np.asarray(xub)))
 
@@ -428,8 +442,60 @@ def xinit(
 
 # -------------------------------------------------------------------- train
 
-_DENSE_KERNEL_SURROGATES = {"gpr"}
+# Surrogates that build a dense (N, N) training kernel (``vgp``: an
+# inducing set of all N rows). Past ``LARGE_N_THRESHOLD`` training rows
+# `train` reroutes these registry names to the sparse variational
+# family, whose cost follows the inducing set instead of N, as the JAX
+# package does (``dmosopt_tpu/moasmo.py:776-806``).
+_DENSE_KERNEL_SURROGATES = {"gpr", "egp", "megp", "mdgp", "mdspp", "vgp"}
 LARGE_N_THRESHOLD = 4096
+
+
+def _route_large_n(surrogate_method_name, n_train, threshold, logger=None):
+    """``svgp`` in place of a dense-kernel registry name when the training
+    set has more than ``threshold`` rows, else the name as given
+    (``dmosopt_tpu/moasmo.py:789-806``). An import path or a class is
+    never rerouted; a ``threshold`` of None or 0 turns routing off."""
+    if (
+        threshold
+        and isinstance(surrogate_method_name, str)
+        and surrogate_method_name in _DENSE_KERNEL_SURROGATES
+        and n_train > threshold
+    ):
+        if logger is not None:
+            logger.info(
+                f"train: N={n_train} exceeds the dense-kernel threshold "
+                f"({threshold}); routing surrogate "
+                f"'{surrogate_method_name}' -> 'svgp'"
+            )
+        return "svgp"
+    return surrogate_method_name
+
+
+def _sparse_kwargs(cls, kwargs, routed_name, logger=None):
+    """The kwargs a rerouted fit keeps: only those that ``cls``'s
+    constructor names (the others were tuned for the dense surrogate and
+    would vanish into its ``**kwargs``), the dropped ones logged as a
+    warning and the kept ones as an info line
+    (``dmosopt_tpu/moasmo.py:879-905``)."""
+    params = inspect.signature(cls.__init__).parameters
+    named = {
+        k for k, p in params.items()
+        if p.kind in (p.POSITIONAL_OR_KEYWORD, p.KEYWORD_ONLY)
+    }
+    dropped = sorted(k for k in kwargs if k not in named)
+    kept = {k: v for k, v in kwargs.items() if k in named}
+    if logger is not None and dropped:
+        logger.warning(
+            f"train: dropping surrogate kwargs not understood by "
+            f"'{routed_name}': {dropped}"
+        )
+    if logger is not None and kept:
+        logger.info(
+            f"train: forwarding kwargs to '{routed_name}' "
+            f"(reinterpreted under the sparse trainer): {sorted(kept)}"
+        )
+    return kept
 
 
 def train(
@@ -458,10 +524,15 @@ def train(
     built before this returns, so its cache build counts in the caller's
     timed train phase. ``info``, when given, receives the training-set
     accounting (``n_train``, ``duplicates_removed``,
-    ``feasible_fraction``), the surrogate's name, the fit's loss and
-    steps, ``refit_path`` and ``gp_predictor``. Beyond
-    ``large_n_threshold`` points the JAX package reroutes dense GPs to its
-    sparse family, which is not ported; such a fit raises."""
+    ``feasible_fraction``), the name of the surrogate fitted (``svgp`` on
+    a rerouted epoch), the fit's loss and steps, ``refit_path`` and
+    ``gp_predictor``. Past ``surrogate_method_kwargs["large_n_threshold"]``
+    deduplicated rows (default ``LARGE_N_THRESHOLD``; None or 0 turns it
+    off) a dense-kernel name is rerouted to ``svgp`` (`_route_large_n`),
+    keeping only the kwargs the sparse constructor names
+    (`_sparse_kwargs`: ``dtype`` and the exact-GP knobs go); ``device``
+    goes in apart from them. ``surrogate_return_mean_variance`` makes the
+    model's ``evaluate`` answer (mean, variance)."""
     x = np.asarray(Xinit).copy()
     y = np.asarray(Yinit).copy()
     n_total = x.shape[0]
@@ -483,12 +554,10 @@ def train(
 
     kwargs = dict(surrogate_method_kwargs or {})
     threshold = kwargs.pop("large_n_threshold", LARGE_N_THRESHOLD)
-    if threshold and surrogate_method_name in _DENSE_KERNEL_SURROGATES and len(x) > threshold:
-        raise NotImplementedError(
-            f"train: N={len(x)} exceeds the dense-kernel threshold "
-            f"({threshold}); the sparse surrogates are not ported"
-        )
-    cls = resolve(surrogate_method_name, default_surrogate_methods)
+    routed_name = _route_large_n(surrogate_method_name, len(x), threshold, logger)
+    cls = resolve(routed_name, default_surrogate_methods)
+    if routed_name != surrogate_method_name:
+        kwargs = _sparse_kwargs(cls, kwargs, routed_name, logger)
 
     def builder(**overrides):
         return cls(
@@ -519,9 +588,9 @@ def train(
             info["gp_predictor"] = sm.predictor_regime
         info["n_train"] = int(x.shape[0])
         info["surrogate"] = (
-            surrogate_method_name
-            if isinstance(surrogate_method_name, str)
-            else getattr(surrogate_method_name, "__name__", str(surrogate_method_name))
+            routed_name
+            if isinstance(routed_name, str)
+            else getattr(routed_name, "__name__", str(routed_name))
         )
         fit_info = getattr(sm, "fit_info", None) or {}
         for src, dst in (
@@ -602,6 +671,7 @@ def epoch(
     feasibility_method_name=None,
     feasibility_method_kwargs: Optional[Dict[str, Any]] = None,
     surrogate_refit=None,
+    optimize_mean_variance: bool = False,
     termination=None,
     local_random=None,
     logger=None,
@@ -632,8 +702,12 @@ def epoch(
     (``sensitivity_s``, the vectors under ``di_mutation`` and
     ``di_crossover``). ``surrogate_refit`` is the problem's refit
     controller, handed to `train`, whose accounting (``refit_path``,
-    ``gp_predictor``, ``n_train``, ...) lands in the stats. The JAX
-    engine's custom-training and mean-variance options are not ported.
+    ``gp_predictor``, ``n_train``, ...) lands in the stats. With
+    ``optimize_mean_variance`` the surrogate answers (mean, variance) and
+    the optimizer ranks those 2·d columns; the design's rows enter it
+    with zero variances, and the resample's predictions are 2·d wide
+    (``dmosopt_tpu/moasmo.py:1057-1065``). The JAX engine's
+    custom-training option is not ported.
     """
     nInput = len(param_names)
     nOutput = len(objective_names)
@@ -647,9 +721,11 @@ def epoch(
 
     x_0 = np.asarray(Xinit, dtype=np.float32).copy()
     y_0 = np.asarray(Yinit, dtype=np.float32).copy()
+    if optimize_mean_variance:
+        y_0 = np.column_stack((y_0, np.zeros_like(y_0)))
 
     optimizer_cls = resolve(optimizer_name, default_optimizers)
-    mdl = Model()
+    mdl = Model(return_mean_variance=optimize_mean_variance)
     if feasibility_method_name is not None and C is not None:
         t0 = time.perf_counter()
         try:
@@ -674,6 +750,7 @@ def epoch(
             nInput, nOutput, xlb, xub, Xinit, Yinit, C,
             surrogate_method_name=surrogate_method_name,
             surrogate_method_kwargs=surrogate_method_kwargs,
+            surrogate_return_mean_variance=optimize_mean_variance,
             logger=logger, info=stats, surrogate_refit=surrogate_refit,
             device=device,
         )
@@ -706,7 +783,8 @@ def epoch(
 
     optimizer = optimizer_cls(
         nInput=nInput, nOutput=nOutput, popsize=pop, model=mdl,
-        distance_metric=None, device=device, **optimizer_kwargs_,
+        distance_metric=None, optimize_mean_variance=optimize_mean_variance,
+        device=device, **optimizer_kwargs_,
     )
 
     # filter out infeasible solutions before seeding the optimizer
@@ -720,6 +798,7 @@ def epoch(
         num_generations, optimizer, mdl, nInput, nOutput, xlb, xub,
         initial=(x_0, y_0), popsize=pop, local_random=local_random,
         termination=termination, logger=logger, stats=stats,
+        optimize_mean_variance=optimize_mean_variance,
         **optimizer_kwargs_,
     )
     try:

@@ -1,7 +1,9 @@
-"""Surrogate model container and the exact-GP surrogate.
+"""Surrogate model container and the surrogate families.
 
 Port of ``dmosopt_tpu/models/__init__.py``: `Model` bundles the
-sub-models an epoch trains (reference: dmosopt/model.py:70-95).
+sub-models an epoch trains (reference: dmosopt/model.py:70-95). The
+exact-GP family is in `gp`, the sparse variational family in `svgp`,
+the deep-kernel GPs in `deep_gp`.
 """
 
 from __future__ import annotations
@@ -35,4 +37,20 @@ class Model:
         return stats
 
 
-from dmosopt_tpu_torch.models.gp import GPR_Matern  # noqa: E402,F401
+from dmosopt_tpu_torch.models.gp import (  # noqa: E402,F401
+    GPR_Matern,
+    GPR_RBF,
+    EGP_Matern,
+    MEGP_Matern,
+)
+from dmosopt_tpu_torch.models.svgp import (  # noqa: E402,F401
+    CRV_Matern,
+    SIV_Matern,
+    SPV_Matern,
+    SVGP_Matern,
+    VGP_Matern,
+)
+from dmosopt_tpu_torch.models.deep_gp import (  # noqa: E402,F401
+    MDGP_Matern,
+    MDSPP_Matern,
+)

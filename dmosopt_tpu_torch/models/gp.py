@@ -323,9 +323,16 @@ def _make_bounds(b, dt, dev):
 def _cholesky_or_nan(K):
     """Lower Cholesky factor of each matrix of K; a matrix that is not
     positive definite gets an all-NaN factor (what `jnp.linalg.cholesky`
-    returns), so everything solved against it is non-finite."""
+    returns), so everything solved against it is non-finite, and so is
+    every gradient taken through it, as through `jnp.linalg.cholesky`
+    (the sparse and deep trainers backpropagate through it). No host
+    sync: the failure flag stays on the device."""
     L, info = torch.linalg.cholesky_ex(K)
-    return torch.where((info == 0)[..., None, None], L, torch.full_like(L, torch.nan))
+    # a factor of 1 leaves a factor and its gradient exact; a factor of
+    # NaN poisons both (a masked select would zero the failed factor's
+    # gradient instead)
+    scale = torch.where(info == 0, 1.0, torch.nan).to(L.dtype)
+    return L * scale[..., None, None]
 
 
 def _cho_solve(L, B):
@@ -741,21 +748,18 @@ def _resolve_predictor_spec(
     )
 
 
-class SurrogateMixin:
-    """The surrogate surface shared by the exact-GP family (reference
-    ``SurrogateMixin``, gp.py:964): unit-box x normalization, the
-    reference's ``predict``/``evaluate`` contract, and predictions routed
-    through the per-fit `GPPredictor`. A model holds ``device``,
-    ``_dtype``, the bounds as tensors (``_xlb_t``, ``_xrg_t``), ``fit``,
-    ``_predictor_spec`` and ``_predictor_obj``."""
+class SurrogateBase:
+    """The surrogate surface of every surrogate family (reference
+    ``SurrogateMixin``, gp.py:959-983): unit-box x normalization and the
+    reference's ``predict``/``evaluate`` contract on top of the family's
+    own ``predict_normalized``. A model holds ``device``, ``_dtype`` and
+    the bounds as tensors (``_xlb_t``, ``_xrg_t``)."""
 
-    def _init_common(self, device, dtype, return_mean_variance, logger, spec):
+    def _init_surface(self, device, dtype, return_mean_variance, logger):
         self.device = resolve_device(device)
         self._dtype = dtype
         self.return_mean_variance = return_mean_variance
         self.logger = logger
-        self._predictor_spec = spec
-        self._predictor_obj = None
 
     def _set_bounds_tensors(self):
         self._xlb_t = torch.as_tensor(self.xlb, dtype=self._dtype, device=self.device)
@@ -764,11 +768,6 @@ class SurrogateMixin:
     def normalize_x(self, xin):
         x = torch.as_tensor(xin, dtype=self._dtype, device=self.device)
         return (x - self._xlb_t) / self._xrg_t
-
-    def predict_normalized(self, Xq: torch.Tensor):
-        """Mean and variance at unit-box queries through the per-fit
-        predictor (``"solve"``, the default, is `gp_predict`)."""
-        return self._predictor().predict_normalized(Xq)
 
     def predict(self, xin):
         x = torch.atleast_2d(torch.as_tensor(xin, dtype=self._dtype, device=self.device))
@@ -782,6 +781,22 @@ class SurrogateMixin:
 
     def get_stats(self):
         return dict(getattr(self, "fit_info", None) or {})
+
+
+class SurrogateMixin(SurrogateBase):
+    """The exact-GP family's surface: `SurrogateBase` with predictions
+    routed through the per-fit `GPPredictor`. A model also holds ``fit``,
+    ``_predictor_spec`` and ``_predictor_obj``."""
+
+    def _init_common(self, device, dtype, return_mean_variance, logger, spec):
+        self._init_surface(device, dtype, return_mean_variance, logger)
+        self._predictor_spec = spec
+        self._predictor_obj = None
+
+    def predict_normalized(self, Xq: torch.Tensor):
+        """Mean and variance at unit-box queries through the per-fit
+        predictor (``"solve"``, the default, is `gp_predict`)."""
+        return self._predictor().predict_normalized(Xq)
 
     def _predictor(self):
         if self._predictor_obj is None:

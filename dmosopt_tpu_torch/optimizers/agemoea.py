@@ -317,8 +317,9 @@ class AGEMOEA(MOEA):
             name="AGEMOEA", popsize=popsize, nInput=nInput, nOutput=nOutput,
             device=device, **kwargs,
         )
-        if optimize_mean_variance:
-            raise NotImplementedError("optimize_mean_variance is not ported")
+        # the EA ranks 2·nOutput columns [mean, variance] of the surrogate
+        # while nOutput stays the objective count (moasmo.epoch)
+        self.optimize_mean_variance = optimize_mean_variance
         self.model = model
         self.feasibility = getattr(model, "feasibility", None)
         if self.opt_params.mutation_rate is None:

@@ -102,8 +102,9 @@ class CMAES(MOEA):
             name="CMAES", popsize=popsize, nInput=nInput, nOutput=nOutput,
             device=device, **kwargs,
         )
-        if optimize_mean_variance:
-            raise NotImplementedError("optimize_mean_variance is not ported")
+        # the EA ranks 2·nOutput columns [mean, variance] of the surrogate
+        # while nOutput stays the objective count (moasmo.epoch)
+        self.optimize_mean_variance = optimize_mean_variance
         # a feasibility model is accepted and not used: the JAX package's
         # survival orders by rank only (dmosopt_tpu/optimizers/cmaes.py:100-118)
         self.model = model

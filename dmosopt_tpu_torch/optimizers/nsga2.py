@@ -68,8 +68,9 @@ class NSGA2(MOEA):
             name="NSGA2", popsize=popsize, nInput=nInput, nOutput=nOutput,
             device=device, **kwargs,
         )
-        if optimize_mean_variance:
-            raise NotImplementedError("optimize_mean_variance is not ported")
+        # the EA ranks 2·nOutput columns [mean, variance] of the surrogate
+        # while nOutput stays the objective count (moasmo.epoch)
+        self.optimize_mean_variance = optimize_mean_variance
         self.model = model
         self.distance_metric = distance_metric
         self.y_distance_metrics = [distance_metric] if distance_metric else None

@@ -18,8 +18,14 @@ feasibility and sensitivity methods pass through to each epoch. With
 ``surrogate_refit`` other than cold the strategy owns one
 `SurrogateRefitController` whose state persists across its epochs (and,
 seeded from ``surrogate_refit_state``, across a resume) and hands it to
-every epoch's fit (``dmosopt_tpu/strategy.py:77-125, :413``). Features
-are not ported; the driver rejects them.
+every epoch's fit (``dmosopt_tpu/strategy.py:77-125, :413``). With
+``optimize_mean_variance`` a prediction column block is 2·d wide, [mean,
+variance], and a mean-only prediction gets zero variances
+(``dmosopt_tpu/strategy.py:237-240, :335-338``). The rows folded into
+the archive as an epoch opens (the previous epoch's resample batch, with
+the predictions that scheduled them) stay in ``folded_evals`` for the
+driver's surrogate-accuracy log. Features are not ported; the driver
+rejects them.
 """
 
 from __future__ import annotations
@@ -82,6 +88,7 @@ class DistOptStrategy:
         sensitivity_method_kwargs: Optional[Dict] = None,
         feasibility_method_name=None,
         feasibility_method_kwargs: Optional[Dict] = None,
+        optimize_mean_variance: bool = False,
         local_random=None, logger=None, device=None,
     ):
         self.__dict__.update(
@@ -96,6 +103,7 @@ class DistOptStrategy:
             resample_fraction=resample_fraction,
             num_generations=num_generations,
             population_size=population_size,
+            optimize_mean_variance=optimize_mean_variance,
         )
         self.surrogate_method_kwargs = surrogate_method_kwargs or {}
         # cross-epoch surrogate reuse: one controller per problem; "cold"
@@ -146,6 +154,7 @@ class DistOptStrategy:
             )
         self.opt_gen = None
         self.epoch_index = -1
+        self.folded_evals = None
         self.stats = {}
         self.n_quarantined = 0
 
@@ -180,6 +189,11 @@ class DistOptStrategy:
         x, y = np.asarray(x), np.asarray(y)
         if x.shape[0] != self.prob.dim or y.shape[0] != self.prob.n_objectives:
             raise ValueError(f"result shapes {x.shape}, {y.shape} do not fit the problem")
+        if self.optimize_mean_variance and pred is not None:
+            pred = np.asarray(pred)
+            if pred.shape[0] == self.prob.n_objectives:
+                # a mean-only prediction: zero variances beside it
+                pred = np.concatenate((pred, np.zeros_like(pred)))
         entry = EvalEntry(epoch, x, y, None, c, pred, time)
         if not np.all(np.isfinite(y.astype(np.float64, copy=False))):
             # a non-finite objective never reaches the archive: one NaN
@@ -232,7 +246,8 @@ class DistOptStrategy:
             if self.prob.n_constraints is not None
             else None
         )
-        nan_pred = [np.nan] * self.prob.n_objectives
+        n_pred_cols = self.prob.n_objectives * (2 if self.optimize_mean_variance else 1)
+        nan_pred = [np.nan] * n_pred_cols
         pred = np.vstack(
             [nan_pred if e.prediction is None else e.prediction for e in done]
         )
@@ -268,7 +283,7 @@ class DistOptStrategy:
         if self.opt_gen is not None:
             raise RuntimeError("an epoch is already active for this strategy")
         name, okw = self._cycled_optimizer()
-        self._update_evals()
+        self.folded_evals = self._update_evals()
 
         if epoch_index <= self.epoch_index:
             raise ValueError(f"epoch {epoch_index} does not follow {self.epoch_index}")
@@ -286,6 +301,7 @@ class DistOptStrategy:
             feasibility_method_name=self.feasibility_method_name,
             feasibility_method_kwargs=self.feasibility_method_kwargs,
             surrogate_refit=self.refit_controller,
+            optimize_mean_variance=self.optimize_mean_variance,
             termination=self.termination,
             local_random=self.local_random, logger=self.logger,
             device=self.device,

@@ -124,7 +124,7 @@ def test_run_with_constraints_returns_feasible_points():
     "option",
     [{"telemetry": True}, {"mesh": object()},
      {"tenant_batching": True}, {"feature_dtypes": [("f", np.float32)]},
-     {"optimize_mean_variance": True}, {"problem_ids": {0, 1}},
+     {"surrogate_custom_training": "no.such.hook"}, {"problem_ids": {0, 1}},
      {"jax_objective": True}],
 )
 def test_unported_driver_options_raise(option):
@@ -133,8 +133,11 @@ def test_unported_driver_options_raise(option):
 
 
 @pytest.mark.parametrize(
-    "option", [{"surrogate_method_name": "svgp"}, {"surrogate_method_name": "vgp"},
-               {"surrogate_method_name": "mdgp"}],
+    # every registry name of the JAX package resolves in the port; a name
+    # that is neither a shorthand nor an import path raises
+    "option", [{"surrogate_method_name": "no_such_surrogate"},
+               {"optimizer_name": "no_such_optimizer"},
+               {"sensitivity_method_name": "no_such_method"}],
 )
 def test_unported_components_raise(option):
     with pytest.raises(NotImplementedError):

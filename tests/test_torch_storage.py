@@ -352,3 +352,50 @@ def test_warm_run_stores_its_refit_state_and_resumes_warm(tmp_path):
     dmosopt_tpu_torch.run(params, device="cpu", verbose=False)
     resumed = port_driver.dopt_dict["torch_warm"].optimizer_dict[0].refit_controller
     assert resumed.path_history[0] == "warm", resumed.path_history
+
+
+@pytest.mark.parametrize("writer", ["jax", "torch"])
+def test_mean_variance_store_resumes_in_the_other_package(tmp_path, writer):
+    """A store of a mean-variance run keeps 2·d prediction columns, [mean,
+    variance], and the ``surrogate_mean_variance`` attribute. One written
+    by the port's run resumes in the JAX driver as in the port's; one
+    written by the JAX package's storage functions (the design, then 3
+    resampled rows with 4-wide predictions) resumes in a port run, which
+    appends rows of the same width that the JAX package's reader loads."""
+    fp = str(tmp_path / f"{writer}_mv.h5")
+    params = _params(fp, optimize_mean_variance=True)
+    names = list(params["space"])
+    if writer == "torch":
+        dmosopt_tpu_torch.run(params, device="cpu", verbose=False)
+        jd = jax_driver.dopt_init({**params, "telemetry": False}, initialize_strategy=True)
+        pd = port_driver.dopt_init({**params, "device": "cpu"}, initialize_strategy=True)
+        assert pd.start_epoch == jd.start_epoch == 2
+        np.testing.assert_array_equal(pd.optimizer_dict[0].x, jd.optimizer_dict[0].x)
+        np.testing.assert_array_equal(pd.optimizer_dict[0].y, jd.optimizer_dict[0].y)
+    else:
+        spec = jax_dt.ParameterSpace.from_dict(params["space"])
+        design = jax_sampling.slh(3 * N_DIM, N_DIM, np.random.default_rng(21), maxiter=5)
+        resampled = np.random.default_rng(5).random((3, N_DIM))
+        x = np.vstack([design, resampled])
+        y = [zdt1_obj(dict(zip(names, r))) for r in x]
+        pred = [[np.nan] * 4] * len(design) + [list(v) + [0.01, 0.02] for v in y[-3:]]
+        jax_storage.init_h5("torch_store", {0}, False, spec, names, ["f1", "f2"], None,
+                            None, None, None, 21, fp, surrogate_mean_variance=True)
+        jax_storage.save_to_h5("torch_store", {0}, False, ["f1", "f2"], None, None, spec,
+                               {0: ([0] * len(design) + [1] * 3, list(x), y, None, None,
+                                    pred)},
+                               None, None, 21, fp, surrogate_mean_variance=True)
+        dmosopt_tpu_torch.run(_params(fp, optimize_mean_variance=True, n_epochs=2),
+                              device="cpu", verbose=False)
+        assert port_driver.dopt_dict["torch_store"].start_epoch == 2
+    with h5py.File(fp, "r") as h5:
+        grp = h5["torch_store"]
+        assert bool(grp.attrs["surrogate_mean_variance"])
+        P = grp["0/predictions"][:]
+        epochs = grp["0/epochs"][:]
+    assert P.shape[1] == 4
+    resampled = P[epochs >= 1]
+    assert resampled.shape[0] >= 3 and np.all(np.isfinite(resampled))
+    assert np.all(resampled[:, 2:] >= 0.0)
+    state = jax_storage.init_from_h5(fp, names, "torch_store")
+    assert sum(1 for e in state[2][0] if e.prediction.shape == (4,)) == P.shape[0]
