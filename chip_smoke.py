@@ -23,7 +23,11 @@ It imports nothing of JAX nor of the JAX package. Phases, in order:
    (100 pairs of 2 genes in TNK's box), and the fused kernel at the
    constrained run's step (50 pairs of 2 genes) and at the SA run's (50
    pairs of 10 genes) with distinct per-gene distribution indices, as the
-   sensitivity analysis sets them.
+   sensitivity analysis sets them; and the fused kernel's bucket launch
+   (a leading tenants axis, one launch for the bucket) at ``bench.py``
+   Config 11's 64 tenants of 8 pairs of 4 genes and at 16 tenants of
+   the quick start's step, with rates and per-gene indices that differ
+   between tenants.
    For each it prints the device
    time per launch, the plain version's, the host time per call of
    both, the bytes the function must move, GB/s, and the bound;
@@ -192,6 +196,26 @@ It imports nothing of JAX nor of the JAX package. Phases, in order:
    4 finite prediction columns. Each epoch's surrogate, fit wall, Adam
    steps, EA wall and logged accuracy are printed.
 
+13. several problems and the problem-batched tenant core, each run
+   through run() with the counters reset just before it and read just
+   after. (a) ``bench.py`` Config 11 as the bench defines it
+   (``bench.py:1044-1197``: ZDT1 with 4 parameters as a batched torch
+   objective, pop 16, 8 generations, 2 epochs, `gpr` with 2 starts and 40
+   steps, seed 0, random seed 17, resample fraction 0.5, 3 initial points
+   per parameter, ``tenant_batching=True``) at 1, 16 and 64 problems,
+   best of 2, printing the wall, tenants/s and the wall over one
+   problem's: every problem of T > 1 is routed "batched" in both epochs,
+   the fused kernel launches once a generation for the whole bucket (16
+   a run at every T) and the standalone kernels never, and each
+   problem's archive holds each row once, all finite, with a
+   non-dominated returned set. (b) 16 problems at the quick start's
+   width (2 epochs) against one problem's run, phase 4's quality gate on
+   every problem. (c) 3 problems with ``feature_dtypes``, sequential, a
+   caller's evaluator (used and not closed) and a
+   ``surrogate_custom_training`` hook (called for every problem's every
+   epoch, its model serving the fit): the feature records of each
+   returned set.
+
 ``python3 chip_smoke.py --phases 2,9,10`` runs the named phases only
 (phase 1 always), without the kernels and result lines.
 
@@ -254,6 +278,13 @@ OFFSPRING_SHAPES = {
     "constrained": (50, 2, 100, 50),
     "sa": (50, 10, 100, 50),
     "large": (65536, 256, 131072, 65536),
+}
+# the bucket launch of the problem-batched core: (tenants, (npairs, n,
+# population, pool size)) at bench.py Config 11's step (pop 16, dim 4)
+# and at 16 tenants of the quick start's step
+BUCKET_SHAPES = {
+    "bucket_config11": (64, (8, 4, 16, 8)),
+    "bucket_quick16": (16, (100, 30, 200, 100)),
 }
 # calls queued per timing round: the kernels launch once per call, the
 # standalone plain versions 15-25 times, the plain offspring step ~55
@@ -356,7 +387,7 @@ def _offspring_inputs(torch, npairs, n, pop, poolsize, seed, live=None,
             scalar(1.0 / n), di_x, di_m, bounds[:, 0], bounds[:, 1])
 
 
-def _offspring_work(torch, V, args, is_x):
+def _offspring_work(torch, V, args, is_x, quiet=False):
     """(bytes, flops) the offspring step must move and do on these
     inputs: each pair's three uniforms, the gene uniforms its operator
     uses (one on a crossover slot, two on a mutation slot), the distinct
@@ -377,8 +408,9 @@ def _offspring_work(torch, V, args, is_x):
         "per-gene vectors and rates": 4 * 4 * n + 3 * 4,
         "offspring and tags": 4 * 2 * npairs * n + npairs,
     }
-    print(f"   offspring {npairs}x{n}: {nx} crossover and {nm} mutation slots, "
-          f"{rows} distinct rows gathered for {2 * npairs} parents; bytes {parts}")
+    if not quiet:
+        print(f"   offspring {npairs}x{n}: {nx} crossover and {nm} mutation slots, "
+              f"{rows} distinct rows gathered for {2 * npairs} parents; bytes {parts}")
     flops = n * (FLOPS_PER_ELEMENT["sbx"] * nx + 2 * FLOPS_PER_ELEMENT["mutation"] * nm)
     return sum(parts.values()), flops
 
@@ -424,6 +456,44 @@ def _check_offspring(torch, V, K, label, shape, live=None):
     err = float((got - want).abs().max())
     assert err <= ATOL["offspring"], ("offspring", label, err)
     return args, err, got_x
+
+
+def _bucket_inputs(torch, T, shape, seed):
+    """A bucket's stacked operands, as the batched core hands them to one
+    launch: each tenant's population, pool and uniforms from its own
+    seed, per-gene distribution indices and bounds columns of a (T, n,
+    2) tensor, and per-tenant rates that differ between tenants."""
+    npairs, n, pop, poolsize = shape
+    per = [_offspring_inputs(torch, npairs, n, pop, poolsize, seed=seed + t,
+                             per_gene_di=True) for t in range(T)]
+    args = [torch.stack([a[k] for a in per]) for k in range(13)]
+    frac = torch.arange(T, device="cuda", dtype=torch.float32) / max(T - 1, 1)
+    args[6] = 0.6 + 0.35 * frac  # crossover rates
+    args[7] = 0.1 + 0.3 * frac  # mutation rates
+    args[8] = (1.0 + (torch.arange(T, device="cuda") % 3).float()) / n
+    bounds = torch.stack([args[11], args[12]], dim=2)  # (T, n, 2)
+    args[11], args[12] = bounds[..., 0], bounds[..., 1]
+    return args
+
+
+def _check_bucket(torch, V, K, label, T, shape):
+    """The fused kernel's bucket launch against `_offspring_core` on the
+    same stacked operands: offspring within ATOL, tags bit-equal."""
+    npairs, n = shape[:2]
+    args = _bucket_inputs(torch, T, shape, seed=npairs + n + T)
+    got, got_x = K.launch_offspring(*args)
+    want, want_x = V._offspring_core(*args)
+    torch.cuda.synchronize()
+    assert got.shape == (T, 2 * npairs, n) and bool(torch.isfinite(got).all()), label
+    assert torch.equal(got_x, want_x), ("bucket operator tags differ", label)
+    assert 0 < int(got_x.sum()) < T * npairs, ("one operator only", label)
+    err = float((got - want).abs().max())
+    assert err <= ATOL["offspring"], ("bucket offspring", label, err)
+    nbytes = flops = 0
+    for t in range(T):
+        b, f = _offspring_work(torch, V, [a[t] for a in args], got_x[t], quiet=True)
+        nbytes, flops = nbytes + b, flops + f
+    return args, err, nbytes, flops
 
 
 def check_kernels(torch, V):
@@ -488,6 +558,17 @@ def check_kernels(torch, V):
     _, err, _ = _check_offspring(torch, V, K, "main, live pool 37 of 100",
                                  OFFSPRING_SHAPES["main"], live=37)
     print(f"kernel offspring main, live pool 37 of 100: max_abs_err {err:.3e}")
+    for label, (T, shape) in BUCKET_SHAPES.items():
+        # one launch for a bucket of T tenants (the batched core)
+        args, err, nbytes, flops = _check_bucket(torch, V, K, label, T, shape)
+        before = K.KERNEL_LAUNCHES["offspring"]
+        K.launch_offspring(*args)
+        assert K.KERNEL_LAUNCHES["offspring"] == before + 1, "one launch a bucket"
+        rows[label] = _row(
+            torch, "offspring", label, (T,) + tuple(shape), err,
+            lambda: K.launch_offspring(*args), lambda: V._offspring_core(*args),
+            nbytes, flops,
+        )
     report["offspring"] = {
         "name": "offspring",
         "route": "triton",
@@ -2134,6 +2215,237 @@ def sparse_surrogates(torch, V, smi):
     return launches
 
 
+# the problem-batched core (phase 13): bench.py Config 11
+# (bench.py:1044-1197), its tenant counts, and the quick start's width
+# at 16 tenants
+CONFIG11_TENANTS = (1, 16, 64)
+WIDE_TENANTS, WIDE_EPOCHS = 16, 2
+FEATURE_PROBLEMS = (0, 1, 2)
+CUSTOM_TRAINING_CALLS = []
+
+
+def config11_params(opt_id, T, **over):
+    """bench.py Config 11's parameters, with a torch objective."""
+    from dmosopt_tpu_torch.benchmarks.zdt import zdt1
+
+    params = {
+        "opt_id": opt_id, "obj_fun": zdt1, "torch_objective": True,
+        "objective_names": ["f1", "f2"],
+        "space": {f"x{i}": [0.0, 1.0] for i in range(4)},
+        "problem_parameters": {}, "n_initial": 3, "n_epochs": 2,
+        "population_size": 16, "num_generations": 8, "resample_fraction": 0.5,
+        "optimizer_name": "nsga2", "surrogate_method_name": "gpr",
+        "surrogate_method_kwargs": {"n_starts": 2, "n_iter": 40, "seed": 0},
+        "random_seed": 17, "tenant_batching": True,
+    }
+    if T > 1:
+        params["problem_ids"] = set(range(T))
+    params.update(over)
+    return params
+
+
+def _non_dominated(y):
+    import numpy as np
+
+    le = np.all(y[:, None, :] <= y[None, :, :], axis=2)
+    lt = np.any(y[:, None, :] < y[None, :, :], axis=2)
+    return not np.any(le & lt)
+
+
+def _check_tenants(dopt, best, label):
+    """Every tenant's archive holds each row once, all finite, and its
+    returned set is finite and non-dominated. Returns the tenants'
+    archives."""
+    import numpy as np
+
+    best = best if dopt.has_problem_ids else {0: best}
+    archives = {}
+    for pid in sorted(dopt.problem_ids):
+        x_all, y_all = dopt.optimizer_dict[pid].get_evals()
+        assert np.all(np.isfinite(x_all)) and np.all(np.isfinite(y_all)), (label, pid)
+        d2 = ((x_all[:, None, :] - x_all[None, :, :]) ** 2).sum(-1)
+        np.fill_diagonal(d2, np.inf)
+        assert d2.min() > 0.0, (label, pid, "a row archived twice")
+        y = np.column_stack([v for _, v in best[pid][1]])
+        assert y.shape[0] > 0 and np.all(np.isfinite(y)), (label, pid)
+        assert _non_dominated(y), (label, pid, "returned set is dominated")
+        archives[pid] = (x_all, y_all, y)
+    return archives
+
+
+def _tenant_run(torch, V, params):
+    """One run through run(), counts reset just before and read just
+    after: (wall, launches, the driver, the returned sets)."""
+    import dmosopt_tpu_torch
+    from dmosopt_tpu_torch.driver import dopt_dict
+
+    torch.cuda.synchronize()
+    V.reset_kernel_launches()
+    t0 = time.perf_counter()
+    best = dmosopt_tpu_torch.run(params, verbose=False)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return wall, dict(V.KERNEL_LAUNCHES), dopt_dict[params["opt_id"]], best
+
+
+def config11(torch, V, smi):
+    """Phase 13 (a): bench.py Config 11 at T = 1, 16 and 64, best of 2."""
+    walls, launches, gens = {}, {}, 2 * 8
+    for T in CONFIG11_TENANTS:
+        best_wall = float("inf")
+        for rep_ in range(2):
+            wall, counts, dopt, best = _tenant_run(
+                torch, V, config11_params(f"config11_{T}_{rep_}", T))
+            best_wall = min(best_wall, wall)
+            if T > 1:
+                routes = [set(s["routing"].values()) for s in dopt.epoch_stats]
+                assert routes == [{"batched"}] * 2, (T, routes)
+            # one fused launch a generation, for the whole bucket
+            assert counts == {"offspring": gens, "sbx": 0, "mutation": 0}, (T, counts)
+            _check_tenants(dopt, best, f"config11 T={T}")
+        walls[T], launches[T] = best_wall, counts
+        print(f"[{smi}] config 11 T={T}: wall {best_wall:.3f} s (best of 2), "
+              f"{T / best_wall:.3f} tenants/s, wall_vs_single "
+              f"{best_wall / walls[1]:.3f}, offspring launches {counts['offspring']} "
+              f"({counts['offspring'] / gens:g} a generation)")
+    return walls, launches
+
+
+def wide_tenants(torch, V, smi):
+    """Phase 13 (b): 16 tenants at the quick start's width, batched,
+    against one tenant's wall; phase 4's quality gate on every tenant."""
+    import numpy as np
+
+    from dmosopt_tpu_torch.benchmarks.zdt import distance_to_front, zdt1, zdt1_pareto
+
+    dim, pop, gens = 30, 200, 100
+    over = dict(space={f"x{i}": [0.0, 1.0] for i in range(dim)}, population_size=pop,
+                num_generations=gens, n_initial=3, n_epochs=WIDE_EPOCHS,
+                surrogate_method_kwargs={}, random_seed=0, resample_fraction=0.25,
+                obj_fun=zdt1)
+    single, counts1, _, _ = _tenant_run(torch, V, config11_params("wide_1", 1, **over))
+    wall, counts, dopt, best = _tenant_run(
+        torch, V, config11_params("wide_16", WIDE_TENANTS, **over))
+    assert counts1 == counts == {"offspring": WIDE_EPOCHS * gens, "sbx": 0,
+                                 "mutation": 0}, (counts1, counts)
+    assert all(set(s["routing"].values()) == {"batched"} for s in dopt.epoch_stats)
+    archives = _check_tenants(dopt, best, "wide tenants")
+    front = zdt1_pareto(1000)
+    n0 = 3 * dim
+    ratios = []
+    for pid, (_, y_all, y) in archives.items():
+        d_best = float(np.median(distance_to_front(y, front)))
+        d_init = float(np.median(distance_to_front(y_all[:n0], front)))
+        assert d_best < d_init, (pid, d_best, d_init)
+        ratios.append(d_best / d_init)
+    for s in dopt.epoch_stats:
+        p0 = s["problems"][0]
+        print(f"[{smi}] 16 tenants epoch {s['epoch']}: {s['epoch_s']:.3f} s, bucket fit "
+              f"{16 * p0['cost_fit_seconds']:.3f} s ({p0['objective']['n_steps']} Adam "
+              f"steps), bucket EA {16 * p0['cost_ea_seconds']:.3f} s")
+    print(f"[{smi}] 16 tenants at the quick start's width, {WIDE_EPOCHS} epochs: "
+          f"{wall:.3f} s against one tenant's {single:.3f} s ({wall / single:.2f}x, "
+          f"16x would be {16 * single:.3f} s); median distance to the front over the "
+          f"design's, per tenant {min(ratios):.3f}-{max(ratios):.3f}")
+    return wall, single, counts
+
+
+def custom_gpr_training(optimizer_cls, Xinit, Yinit, C, xlb, xub, file_path,
+                        options=None, **kwargs):
+    """A ``surrogate_custom_training`` hook: fits the `gpr` surrogate the
+    options name with the hook's own kwargs, and records its call."""
+    from dmosopt_tpu_torch.models.gp import GPR_Matern
+
+    sm = GPR_Matern(Xinit, Yinit, len(xlb), Yinit.shape[1], xlb, xub,
+                    **{**options["surrogate_method_kwargs"], **kwargs})
+    CUSTOM_TRAINING_CALLS.append((sorted(options), Xinit.shape, sm))
+    return optimizer_cls, sm, None, None
+
+
+def _zdt1_features(x):
+    """ZDT1 of (B, n) rows with two features: the sum of the rows'
+    parameters and g."""
+    import torch
+
+    from dmosopt_tpu_torch.benchmarks.zdt import zdt1
+
+    g = 1.0 + 9.0 / (x.shape[1] - 1) * x[:, 1:].sum(dim=1)
+    return zdt1(x), torch.stack([x.sum(dim=1), g], dim=1)
+
+
+class _CountingEvaluator:
+    """An evaluator the caller builds: a batched torch evaluator over the
+    problems with features that counts its calls and any close."""
+
+    def __init__(self, torch):
+        from dmosopt_tpu_torch.parallel.evaluator import TorchBatchEvaluator
+
+        self.inner = TorchBatchEvaluator(_zdt1_features, torch.device("cuda"),
+                                         problem_ids=list(FEATURE_PROBLEMS))
+        self.batches = self.closed = 0
+
+    def evaluate_batch(self, space_vals_list):
+        self.batches += 1
+        return self.inner.evaluate_batch(space_vals_list)
+
+    def close(self):
+        self.closed += 1
+
+
+def feature_problems(torch, V, smi):
+    """Phase 13 (c): three problems with feature_dtypes, sequential, an
+    external evaluator and a custom-training hook; returns the launches."""
+    import numpy as np
+
+    evaluator = _CountingEvaluator(torch)
+    CUSTOM_TRAINING_CALLS.clear()
+    params = config11_params(
+        "feature_problems", 1, problem_ids=set(FEATURE_PROBLEMS), tenant_batching=False,
+        obj_fun=_zdt1_features, evaluator=evaluator,
+        feature_dtypes=[("x_sum", "<f8"), ("g", "<f8")],
+        surrogate_custom_training=f"{__name__}.custom_gpr_training",
+        surrogate_custom_training_kwargs={"n_iter": 30},
+    )
+    import dmosopt_tpu_torch
+    from dmosopt_tpu_torch.driver import dopt_dict
+
+    V.reset_kernel_launches()
+    t0 = time.perf_counter()
+    best = dmosopt_tpu_torch.run(params, verbose=False, return_features=True)
+    wall = time.perf_counter() - t0
+    launches = dict(V.KERNEL_LAUNCHES)
+    dopt = dopt_dict["feature_problems"]
+    assert sorted(best) == list(FEATURE_PROBLEMS), sorted(best)
+    assert evaluator.batches > 0 and evaluator.closed == 0, vars(evaluator)
+    # the hook ran for every problem's every epoch, and its model served
+    assert len(CUSTOM_TRAINING_CALLS) == 2 * len(FEATURE_PROBLEMS), len(CUSTOM_TRAINING_CALLS)
+    assert all(s["problems"][p]["objective"]["n_iter_max"] == 30
+               for s in dopt.epoch_stats for p in FEATURE_PROBLEMS)
+    for pid, (prms, res, ftrs) in best.items():
+        x = np.column_stack([v for _, v in prms])
+        assert ftrs.dtype.names == ("x_sum", "g") and ftrs.shape == (x.shape[0],), ftrs.dtype
+        np.testing.assert_allclose(ftrs["x_sum"], x.sum(axis=1), rtol=1e-5)
+        assert _non_dominated(np.column_stack([v for _, v in res]))
+    assert launches == {"offspring": 2 * 8 * len(FEATURE_PROBLEMS), "sbx": 0,
+                        "mutation": 0}, launches
+    print(f"[{smi}] 3 problems with features: {wall:.3f} s, returned "
+          f"{[len(best[p][2]) for p in FEATURE_PROBLEMS]} feature records, hook calls "
+          f"{len(CUSTOM_TRAINING_CALLS)}, evaluator batches {evaluator.batches}, "
+          f"closed {evaluator.closed}")
+    return launches
+
+
+def tenant_core(torch, V, smi):
+    """Phase 13: the several-problem run and the batched tenant core.
+    Returns each run's launch counts."""
+    walls, launches = config11(torch, V, smi)
+    wall, single, wide = wide_tenants(torch, V, smi)
+    feats = feature_problems(torch, V, smi)
+    out = {f"config11_T{T}": c for T, c in launches.items()}
+    out.update(wide_16=wide, features=feats)
+    return out
+
+
 def _requested_phases(argv):
     """The phases of ``--phases 2,9,10``, or None for the whole script."""
     if not argv:
@@ -2168,7 +2480,7 @@ def main() -> int:
         runs = {2: check_kernels, 3: direct_ea, 4: quick_start, 5: file_backed,
                 6: many_objective, 7: lorenz_run, 8: config5_loop,
                 9: constrained_run, 10: sa_run, 11: reusing_surrogate,
-                12: sparse_surrogates}
+                12: sparse_surrogates, 13: tenant_core}
         for p in sorted(phases):
             t0 = time.perf_counter()
             fn = runs[p]
@@ -2197,9 +2509,11 @@ def main() -> int:
     t5 = time.perf_counter()
     launches_sparse = sparse_surrogates(torch, V, smi)
     t6 = time.perf_counter()
+    launches_tenants = tenant_core(torch, V, smi)
+    t7 = time.perf_counter()
     print(f"[{smi}] phase 7 {t1 - t0:.1f} s, phase 8 {t2 - t1:.1f} s, phase 9 "
           f"{t3 - t2:.1f} s, phase 10 {t4 - t3:.1f} s, phase 11 {t5 - t4:.1f} s, "
-          f"phase 12 {t6 - t5:.1f} s")
+          f"phase 12 {t6 - t5:.1f} s, phase 13 {t7 - t6:.1f} s")
     assert "jax" not in sys.modules and "dmosopt_tpu" not in sys.modules
 
     kernels = []
@@ -2220,6 +2534,7 @@ def main() -> int:
             "launches_sa_run": launches_sa[name],
             "launches_refit_runs": {m: n[name] for m, n in launches_refit.items()},
             "launches_sparse_runs": {m: n[name] for m, n in launches_sparse.items()},
+            "launches_tenant_runs": {m: n[name] for m, n in launches_tenants.items()},
             "max_abs_err": max(r["max_abs_err"] for r in rep["rows"].values()),
             "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
             "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
@@ -2227,7 +2542,8 @@ def main() -> int:
             "host_ms": main_row["host_ms"], "plain_host_ms": main_row["plain_host_ms"],
             "large": rep["rows"]["large"],
             **{k: rep["rows"][k] for k in ("main", "direct", "file", "many_objective",
-                                           "constrained", "sa", "children")
+                                           "constrained", "sa", "children",
+                                           *BUCKET_SHAPES)
                if k in rep["rows"] and k != top},
             **({"also_replaces": rep["also_replaces"]} if "also_replaces" in rep else {}),
         })

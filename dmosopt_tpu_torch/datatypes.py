@@ -178,11 +178,15 @@ EpochResults = namedtuple(
 
 
 class OptProblem:
-    """Optimization problem spec (reference: dmosopt/datatypes.py:308-353)."""
+    """Optimization problem spec (reference: dmosopt/datatypes.py:308-353).
+    ``feature_dtypes`` names the features an evaluation returns beside
+    its objectives, and ``feature_constructor`` rebuilds their
+    user-facing view from the archive's flat float columns."""
 
     __slots__ = (
         "dim", "lb", "ub", "param_names", "objective_names",
         "constraint_names", "n_objectives", "n_constraints",
+        "feature_dtypes", "feature_constructor", "n_features",
     )
 
     def __init__(
@@ -191,6 +195,8 @@ class OptProblem:
         objective_names: Sequence[str],
         constraint_names,
         spec: ParameterSpace,
+        feature_dtypes=None,
+        feature_constructor=None,
     ):
         self.dim = len(spec.bound1)
         if self.dim <= 0:
@@ -203,6 +209,11 @@ class OptProblem:
         self.n_constraints = (
             len(constraint_names) if constraint_names is not None else None
         )
+        self.feature_dtypes = feature_dtypes
+        self.feature_constructor = (
+            feature_constructor if feature_constructor is not None else (lambda f: f)
+        )
+        self.n_features = len(feature_dtypes) if feature_dtypes is not None else None
 
 
 def update_nested_dict(base: Dict, update: Dict) -> Dict:

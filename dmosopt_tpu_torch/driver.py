@@ -27,13 +27,26 @@ the JAX package's format, and a resumed run starts from it.
 ``optimize_mean_variance`` makes the inner EA rank the surrogate's mean
 and variance, with 2·d prediction columns in the archive and the store.
 Each epoch after the first logs the surrogate's error on the rows it
-resampled (`_log_surrogate_accuracy`, kept in ``epoch_stats``). The
-driver options of the JAX package that this port does not carry yet
-raise `NotImplementedError` instead of being ignored: several problems
-(``problem_ids``), features, custom surrogate training,
-``jax_objective``, an external ``evaluator``, meshes, tenant batching
-and telemetry. A store written with features or
-several problems cannot be resumed here either.
+resampled (`_log_surrogate_accuracy`, kept in ``epoch_stats``).
+
+Several problems (``problem_ids``) get one strategy, one archive and
+one store group each; every evaluation round holds one request per
+problem, and a host objective then takes a dict of each problem's
+parameters (`eval_obj_fun_mp`). ``feature_dtypes`` (or a
+``feature_class`` import path) names the features an objective
+returns beside its objectives; the archive and the store keep them as
+float64 columns, and `get_best` / `run(return_features=True)` hand
+each problem's best set back with its feature records. A
+``surrogate_custom_training`` hook replaces each epoch's models, and an
+external ``evaluator`` is used as given and never closed by `run()`.
+With ``tenant_batching`` the problems of one bucket (same optimizer,
+shapes and fit configuration) advance through one batched GP fit and
+one generation loop over stacked NSGA-II states, one offspring launch
+a generation for the whole bucket (`tenants.initialize_epochs_batched`);
+buckets smaller than ``min_tenant_bucket`` take the sequential path.
+The driver options of the JAX package that this port does not carry
+yet raise `NotImplementedError` instead of being ignored:
+``jax_objective``, meshes and telemetry.
 """
 
 from __future__ import annotations
@@ -88,6 +101,24 @@ def _merge_eval_params(pp, param_space, vals, nested):
     return {**fixed, **dict(zip(param_space.parameter_names, vals))}
 
 
+def eval_obj_fun_mp(
+    obj_fun, pp, param_space, nested_parameter_space, obj_fun_args, problem_ids,
+    space_vals,
+):
+    """Multi-problem objective evaluation (reference
+    dmosopt/dmosopt.py:2366-2409; ``dmosopt_tpu/driver.py:116-131``): one
+    call with every problem's parameters present in ``space_vals`` (a
+    subset of ``problem_ids`` when the problems' queues differ in length)."""
+    mpp = {
+        pid: _merge_eval_params(pp, param_space, vals, nested_parameter_space)
+        for pid, vals in space_vals.items()
+    }
+    started = time.time()
+    results = obj_fun(mpp, *(obj_fun_args or ()))
+    results["time"] = time.time() - started
+    return results
+
+
 def eval_obj_fun_sp(
     obj_fun, pp, param_space, nested_parameter_space, obj_fun_args, problem_id,
     space_vals,
@@ -100,6 +131,20 @@ def eval_obj_fun_sp(
     started = time.time()
     result = obj_fun(merged, *(obj_fun_args or ()))
     return {problem_id: result, "time": time.time() - started}
+
+
+def _to_records(dt, numeric, F):
+    """Flat float feature columns as structured records of ``dt``; records
+    already, or features of a non-numeric spec (kept raw in the archive),
+    pass as they are."""
+    if F is None:
+        return None
+    F = np.asarray(F)
+    if F.dtype.names or not numeric:
+        return F
+    from numpy.lib.recfunctions import unstructured_to_structured
+
+    return unstructured_to_structured(np.asarray(F, np.float64), dtype=dt)
 
 
 class _InflightBatch:
@@ -127,12 +172,7 @@ class _InflightBatch:
 
 # driver options of the JAX package that are not ported, with the value
 # that means "not used"
-_UNPORTED_DEFAULTS = {
-    "problem_ids": None, "feature_dtypes": None, "feature_class": None,
-    "surrogate_custom_training": None,
-    "jax_objective": False, "evaluator": None, "mesh": None,
-    "tenant_batching": False,
-}
+_UNPORTED_DEFAULTS = {"jax_objective": False, "mesh": None}
 # keyword arguments of the reference's distwq `run()` that the JAX
 # package's `run()` accepts and ignores (dmosopt_tpu/driver.py:1600-1602)
 _LEGACY_RUN_KWARGS = ("spawn_workers", "nprocs_per_worker")
@@ -149,7 +189,8 @@ class DistOptimizer:
         obj_fun,
         *,
         space=None, nested_parameter_space=False, problem_parameters=None,
-        objective_names=None, constraint_names=None,
+        problem_ids=None, objective_names=None, constraint_names=None,
+        feature_dtypes=None, feature_class=None,
         obj_fun_args=None, reduce_fun=None, reduce_fun_args=None,
         n_epochs=10, population_size=100, num_generations=200,
         resample_fraction=0.25,
@@ -160,13 +201,14 @@ class DistOptimizer:
         sensitivity_method_name=None, sensitivity_method_kwargs=None,
         feasibility_method_name=None, feasibility_method_kwargs=None,
         dynamic_initial_sampling=None, dynamic_initial_sampling_kwargs=None,
+        surrogate_custom_training=None, surrogate_custom_training_kwargs=None,
         surrogate_refit=None, optimize_mean_variance=False, telemetry=None,
         random_seed=None, local_random=None,
         file_path=None, save=False, save_eval=10,
         save_surrogate_evals=False, save_optimizer_params=True,
         metadata=None,
-        torch_objective=False, n_eval_workers=1, pipeline=None, device=None,
-        verbose=False,
+        torch_objective=False, evaluator=None, n_eval_workers=1, pipeline=None,
+        tenant_batching=False, min_tenant_bucket=2, device=None, verbose=False,
         **kwargs,
     ) -> None:
         """MO-ASMO optimization driver (reference dmosopt/dmosopt.py:546-630).
@@ -192,6 +234,23 @@ class DistOptimizer:
         optimize_mean_variance: the inner EA ranks the surrogate's mean and
           variance (2·d columns); the archive's and the store's prediction
           columns are then 2·d wide.
+        problem_ids: a set of problem ids; each problem gets its own
+          strategy, archive and store group, and a host objective takes
+          ``{problem_id: parameters}`` and returns ``{problem_id: result}``.
+        feature_dtypes, feature_class: the features an objective returns
+          beside its objectives (a result is then ``(y, f)`` or ``(y, f,
+          c)``): a list of numpy dtype tuples, shown as structured
+          records, or the import path of a constructor of the flat
+          float64 feature columns.
+        surrogate_custom_training: import path of a hook that builds each
+          epoch's optimizer class and models (`moasmo.epoch`), with
+          ``surrogate_custom_training_kwargs``.
+        evaluator: an evaluation backend built by the caller (with
+          ``evaluate_batch`` and optionally ``submit_batch``); `run()`
+          does not close it.
+        tenant_batching, min_tenant_bucket: with several problems, run
+          each bucket of at least ``min_tenant_bucket`` problems through
+          the batched tenant core (`tenants.py`).
         dynamic_initial_sampling: import path of an epoch-0 sampler,
           called with ``file_path``, ``iteration``, ``evaluated_samples``,
           ``next_samples``, ``sampler`` and ``dynamic_initial_sampling_kwargs``;
@@ -242,6 +301,11 @@ class DistOptimizer:
             sensitivity_method_name=sensitivity_method_name,
             feasibility_method_name=feasibility_method_name,
             dynamic_initial_sampling=dynamic_initial_sampling,
+            feature_dtypes=feature_dtypes,
+            surrogate_custom_training=surrogate_custom_training,
+            surrogate_custom_training_kwargs=surrogate_custom_training_kwargs,
+            tenant_batching=bool(tenant_batching),
+            min_tenant_bucket=max(int(min_tenant_bucket), 1),
         )
         self.sensitivity_method_kwargs = sensitivity_method_kwargs or {}
         self.feasibility_method_kwargs = feasibility_method_kwargs or {}
@@ -278,11 +342,7 @@ class DistOptimizer:
             (seed, max_epoch, self.old_evals, param_space, objective_names,
              feature_dtypes, constraint_names, problem_parameters,
              problem_ids) = self._restore_from_file(file_path, param_space)
-            if feature_dtypes is not None or problem_ids is not None:
-                raise NotImplementedError(
-                    "resuming a store with features or several problems is "
-                    "not ported to dmosopt_tpu_torch"
-                )
+            self.feature_dtypes = feature_dtypes
             self.constraint_names = constraint_names
             self.start_epoch = max(max_epoch, 0)
             if seed is not None:
@@ -310,7 +370,8 @@ class DistOptimizer:
         self.objective_names = objective_names
         self.problem_parameters = problem_parameters
         self.file_path, self.save = file_path, save
-        self.problem_ids = {0}
+        self.has_problem_ids = problem_ids is not None
+        self.problem_ids = set(problem_ids) if self.has_problem_ids else {0}
         for okw in self.optimizer_kwargs:
             # per-parameter distribution indices may come as nested dicts
             for di_key in ("di_crossover", "di_mutation"):
@@ -330,24 +391,63 @@ class DistOptimizer:
             "stragglers": 0, "h5_writes": 0, "h5_write_s": 0.0,
         }
 
-        self.eval_fun = partial(
-            eval_obj_fun_sp, obj_fun, self.problem_parameters, self.param_space,
-            nested_parameter_space, self.obj_fun_args, 0,
+        self._init_features(feature_class)
+
+        wrapper, target = (
+            (eval_obj_fun_mp, self.problem_ids)
+            if self.has_problem_ids
+            else (eval_obj_fun_sp, 0)
         )
-        self.evaluator = (
-            TorchBatchEvaluator(obj_fun, self.device)
+        self.eval_fun = partial(
+            wrapper, obj_fun, self.problem_parameters, self.param_space,
+            nested_parameter_space, self.obj_fun_args, target,
+        )
+        # only an evaluator built here is closed by run(): a caller's may
+        # be shared across runs
+        self._owns_evaluator = evaluator is None
+        self.evaluator = evaluator if evaluator is not None else (
+            TorchBatchEvaluator(obj_fun, self.device, problem_ids=sorted(self.problem_ids))
             if torch_objective
             else HostFunEvaluator(self.eval_fun, n_workers=n_eval_workers)
         )
 
         if self.save and not resuming:
             storage.init_h5(
-                self.opt_id, self.problem_ids, False, self.param_space,
-                self.param_names, self.objective_names, None,
-                self.constraint_names, self.problem_parameters, self.metadata,
-                self.random_seed, self.file_path,
+                self.opt_id, self.problem_ids, self.has_problem_ids,
+                self.param_space, self.param_names, self.objective_names,
+                self.feature_dtypes, self.constraint_names,
+                self.problem_parameters, self.metadata, self.random_seed,
+                self.file_path,
                 surrogate_mean_variance=self.optimize_mean_variance,
             )
+
+    def _init_features(self, feature_class):
+        """The archive keeps features as flat float columns; the
+        constructor rebuilds the caller's view when results are handed
+        back: ``feature_class``'s, or structured records named by
+        ``feature_dtypes``. With ``save`` a non-numeric feature field
+        fails here, before any evaluation (``dmosopt_tpu/driver.py:433-479``)."""
+        self.persist_features = bool(self.save)
+        dt = dt_numeric = None
+        if self.feature_dtypes is not None:
+            dt = np.dtype([tuple(d) for d in self.feature_dtypes])
+            bad = storage.non_numeric_feature_fields(dt)
+            dt_numeric = not bad
+            if self.save and bad:
+                raise ValueError(
+                    f"feature fields {bad} are not numeric; persistence "
+                    f"(save=True) requires numeric feature dtypes"
+                )
+        if feature_class is not None:
+            self.feature_constructor = import_object_by_path(feature_class)
+        elif dt is not None:
+            self.feature_constructor = partial(_to_records, dt, dt_numeric)
+        else:
+            self.feature_constructor = lambda x: x
+        self.feature_names = (
+            [d[0] for d in self.feature_dtypes] if self.feature_dtypes is not None
+            else None
+        )
 
     # --------------------------------------------------------- init helpers
 
@@ -389,13 +489,41 @@ class DistOptimizer:
                 out[key] = value
         return out
 
+    # each problem's stats keep their own key prefix up to this many
+    # problems, and are averaged beyond (per-problem keys of 64 tenants
+    # would be hundreds)
+    _STATS_PER_PROBLEM_LIMIT = 16
+
     def get_stats(self):
-        """The driver's and the strategy's stats, with paired
+        """The driver's and the strategies' stats, with paired
         `<phase>_start`/`<phase>_end` timestamps collapsed into one
-        `<phase>` duration."""
-        strategy = self.optimizer_dict.get(0)
-        if strategy is not None:
-            self.stats.update(strategy.stats)
+        `<phase>` duration (``dmosopt_tpu/driver.py:643-689``, its
+        ``stats_per_problem="auto"``). One problem keeps unprefixed keys;
+        several prefix every problem's with its id, or, past
+        `_STATS_PER_PROBLEM_LIMIT` problems, give each numeric key K as
+        ``K_mean`` over the problems with ``stats_n_problems``."""
+        multi = len(self.problem_ids) > 1
+        if len(self.problem_ids) > self._STATS_PER_PROBLEM_LIMIT:
+            sums, counts, n_reporting = {}, {}, 0
+            for pid in self.problem_ids:
+                strategy = self.optimizer_dict.get(pid)
+                if strategy is None:
+                    continue
+                n_reporting += 1
+                for k, v in self._collapse_phase_pairs(strategy.stats).items():
+                    if isinstance(v, (int, float, np.integer, np.floating)):
+                        sums[k] = sums.get(k, 0.0) + float(v)
+                        counts[k] = counts.get(k, 0) + 1
+            out = self._collapse_phase_pairs(self.stats)
+            out.update((f"{k}_mean", sums[k] / counts[k]) for k in sums)
+            out["stats_n_problems"] = n_reporting
+            return out
+        for pid in self.problem_ids:
+            strategy = self.optimizer_dict.get(pid)
+            if strategy is None:
+                continue
+            prefix = f"{pid}_" if (multi or pid > 0) else ""
+            self.stats.update((prefix + k, v) for k, v in strategy.stats.items())
         return self._collapse_phase_pairs(self.stats)
 
     # ----------------------------------------------------- strategy setup
@@ -424,48 +552,60 @@ class DistOptimizer:
             epochs = np.concatenate([e.epoch for e in evals], axis=None)
         x = np.vstack([e.parameters for e in evals])
         y = np.vstack([e.objectives for e in evals])
+        f = None
+        if self.feature_dtypes is not None:
+            # flat float columns, as live rows are archived
+            f = np.stack([storage.feature_columns(e.features).ravel() for e in evals])
         c = None
         if self.constraint_names is not None:
             c = np.vstack([e.constraints for e in evals])
-        return (epochs, x, y, None, c)
+        return (epochs, x, y, f, c)
 
     def initialize_strategy(self):
         opt_prob = OptProblem(
             self.param_names, self.objective_names, self.constraint_names,
-            self.param_space,
+            self.param_space, feature_dtypes=self.feature_dtypes,
+            feature_constructor=self.feature_constructor,
         )
-        initial = self._restored_initial(0)
-        if initial is not None and initial[1].shape[0] >= self.n_initial * len(
-            self.param_names
+        initials = {pid: self._restored_initial(pid) for pid in sorted(self.problem_ids)}
+        if any(
+            init is not None
+            and init[1].shape[0] >= self.n_initial * len(self.param_names)
+            for init in initials.values()
         ):
             # a complete initial design means the restored max epoch is
-            # done: new epochs continue after it
+            # done: new epochs continue after it (once for the run; the
+            # problems share epoch labels)
             self.start_epoch += 1
-        self.optimizer_dict[0] = DistOptStrategy(
-            opt_prob, n_initial=self.n_initial, initial=initial,
-            initial_method=self.initial_method,
-            initial_maxiter=self.initial_maxiter,
-            population_size=self.population_size,
-            num_generations=self.num_generations,
-            resample_fraction=self.resample_fraction,
-            distance_metric=self.distance_metric,
-            termination_conditions=self.termination_conditions,
-            optimizer_name=self.optimizer_name,
-            optimizer_kwargs=self.optimizer_kwargs,
-            surrogate_method_name=self.surrogate_method_name,
-            surrogate_method_kwargs=self.surrogate_method_kwargs,
-            surrogate_refit=self.surrogate_refit,
-            surrogate_refit_state=self._restored_refit_state(0),
-            sensitivity_method_name=self.sensitivity_method_name,
-            sensitivity_method_kwargs=self.sensitivity_method_kwargs,
-            feasibility_method_name=self.feasibility_method_name,
-            feasibility_method_kwargs=self.feasibility_method_kwargs,
-            optimize_mean_variance=self.optimize_mean_variance,
-            local_random=self.local_random, logger=self.logger,
-            device=self.device,
-        )
-        self.storage_dict[0] = []
-        if initial is not None:
+        for problem_id, initial in initials.items():
+            self.optimizer_dict[problem_id] = DistOptStrategy(
+                opt_prob, n_initial=self.n_initial, initial=initial,
+                initial_method=self.initial_method,
+                initial_maxiter=self.initial_maxiter,
+                population_size=self.population_size,
+                num_generations=self.num_generations,
+                resample_fraction=self.resample_fraction,
+                distance_metric=self.distance_metric,
+                termination_conditions=self.termination_conditions,
+                optimizer_name=self.optimizer_name,
+                optimizer_kwargs=self.optimizer_kwargs,
+                surrogate_method_name=self.surrogate_method_name,
+                surrogate_method_kwargs=self.surrogate_method_kwargs,
+                surrogate_custom_training=self.surrogate_custom_training,
+                surrogate_custom_training_kwargs=self.surrogate_custom_training_kwargs,
+                surrogate_refit=self.surrogate_refit,
+                surrogate_refit_state=self._restored_refit_state(problem_id),
+                sensitivity_method_name=self.sensitivity_method_name,
+                sensitivity_method_kwargs=self.sensitivity_method_kwargs,
+                feasibility_method_name=self.feasibility_method_name,
+                feasibility_method_kwargs=self.feasibility_method_kwargs,
+                optimize_mean_variance=self.optimize_mean_variance,
+                persist_features=self.persist_features, file_path=self.file_path,
+                local_random=self.local_random, logger=self.logger,
+                device=self.device,
+            )
+            self.storage_dict[problem_id] = []
+        if any(init is not None for init in initials.values()):
             self.print_best()
 
     def _restored_refit_state(self, problem_id):
@@ -485,36 +625,51 @@ class DistOptimizer:
 
     # ------------------------------------------------------------ queries
 
-    def get_best(self, feasible=True, return_constraints=False):
+    def get_best(self, feasible=True, return_features=False, return_constraints=False):
         """Current best (non-dominated) evaluations, as (name, column)
-        pair lists, optionally with the named constraint columns."""
+        pair lists, optionally with the feature records and the named
+        constraint columns; with ``problem_ids`` a dict of them by
+        problem."""
 
         def named_columns(names, arr):
             return None if arr is None else list(zip(names, list(arr.T)))
 
-        bx, by, bc = self.optimizer_dict[0].get_best_evals(feasible=feasible)
-        result = [
-            named_columns(self.param_names, bx),
-            named_columns(self.objective_names, by),
-        ]
-        if return_constraints:
-            result.append(
-                named_columns(self.constraint_names, bc)
-                if self.constraint_names is not None
-                else None
+        best = {}
+        for problem_id in sorted(self.problem_ids):
+            bx, by, bf, bc = self.optimizer_dict[problem_id].get_best_evals(
+                feasible=feasible
             )
-        return tuple(result)
+            result = [
+                named_columns(self.param_names, bx),
+                named_columns(self.objective_names, by),
+            ]
+            if return_features:
+                result.append(bf)
+            if return_constraints:
+                result.append(
+                    named_columns(self.constraint_names, bc)
+                    if self.constraint_names is not None
+                    else None
+                )
+            best[problem_id] = tuple(result)
+        return best if self.has_problem_ids else best[0]
 
     def print_best(self, feasible=True):
-        prms, res, *_ = self.get_best(feasible=feasible)
-        if res is None:
-            return
-        prms_dict, res_dict = dict(prms), dict(res)
-        n_res = next(iter(res_dict.values())).shape[0]
-        for i in range(n_res):
-            res_i = {k: res_dict[k][i] for k in res_dict}
-            prms_i = {k: prms_dict[k][i] for k in prms_dict}
-            self.logger.info(f"Best eval {i} so far: {res_i}@{prms_i}")
+        best = self.get_best(feasible=feasible, return_features=True)
+        items = best.items() if self.has_problem_ids else [(0, best)]
+        for problem_id, (prms, res, ftrs) in items:
+            if res is None:
+                continue
+            prms_dict, res_dict = dict(prms), dict(res)
+            n_res = next(iter(res_dict.values())).shape[0]
+            for i in range(n_res):
+                res_i = {k: res_dict[k][i] for k in res_dict}
+                prms_i = {k: prms_dict[k][i] for k in prms_dict}
+                where = f" for id {problem_id}" if self.has_problem_ids else ""
+                msg = f"Best eval {i} so far{where}: {res_i}@{prms_i}"
+                if ftrs is not None:
+                    msg += f" [{ftrs[i]}]"
+                self.logger.info(msg)
 
     # -------------------------------------------------------- persistence
 
@@ -544,6 +699,12 @@ class DistOptimizer:
         if self._writer is not None:
             self._writer.flush()
 
+    def _close_evaluator(self):
+        """Close the evaluator this driver built; a caller's is left open
+        (it may serve several runs)."""
+        if self._owns_evaluator and hasattr(self.evaluator, "close"):
+            self.evaluator.close()
+
     def _close_writer(self):
         if self._writer is not None:
             self._writer.close()
@@ -562,7 +723,9 @@ class DistOptimizer:
                     [e.epoch for e in rows],
                     [e.parameters for e in rows],
                     [e.objectives for e in rows],
-                    None,
+                    [e.features for e in rows]
+                    if self.feature_names is not None
+                    else None,
                     [e.constraints for e in rows]
                     if self.constraint_names is not None
                     else None,
@@ -576,7 +739,8 @@ class DistOptimizer:
             # `finished` is a snapshot (the live lists were reset above)
             self._submit_write(
                 storage.save_to_h5,
-                self.opt_id, self.problem_ids, False, self.objective_names, None,
+                self.opt_id, self.problem_ids, self.has_problem_ids,
+                self.objective_names, self.feature_dtypes,
                 self.constraint_names, self.param_space, finished,
                 self.problem_parameters, self.metadata, self.random_seed,
                 self.file_path, self.logger,
@@ -627,16 +791,24 @@ class DistOptimizer:
         )
 
     def _gather_rounds(self):
-        """Pop every pending request into evaluation rounds."""
+        """Pop every pending request into evaluation rounds, one request
+        per problem per round; a round may hold a subset of the problems
+        when their queues differ in length."""
         task_args, task_reqs = [], []
-        strat = self.optimizer_dict[0]
         while True:
-            req = strat.get_next_request()
-            if req is None:
+            round_reqs = {}
+            for problem_id in sorted(self.problem_ids):
+                req = self.optimizer_dict[problem_id].get_next_request()
+                if req is not None:
+                    round_reqs[problem_id] = req
+            if not round_reqs:
                 break
-            task_args.append({0: req.parameters})
-            task_reqs.append({0: req})
+            task_args.append({pid: req.parameters for pid, req in round_reqs.items()})
+            task_reqs.append(round_reqs)
         return task_args, task_reqs
+
+    def _has_requests(self) -> bool:
+        return any(self.optimizer_dict[pid].has_requests() for pid in self.problem_ids)
 
     def _fold_round(self, res, round_reqs):
         """Fold one completed evaluation round into the strategy and the
@@ -650,12 +822,19 @@ class DistOptimizer:
         t = res.pop("time", -1.0)
         for problem_id, rres in res.items():
             eval_req = round_reqs[problem_id]
-            c = None
+            # (y, f, c), (y, f), (y, c) or y, by what the problem declares
+            kwargs = {}
+            parts = list(rres) if (
+                self.feature_names is not None or self.constraint_names is not None
+            ) else [rres]
+            rres = parts.pop(0)
+            if self.feature_names is not None:
+                kwargs["f"] = parts.pop(0)
             if self.constraint_names is not None:
-                rres, c = rres[0], rres[1]
+                kwargs["c"] = parts.pop(0)
             entry = self.optimizer_dict[problem_id].complete_request(
                 eval_req.parameters, np.asarray(rres), pred=eval_req.prediction,
-                epoch=eval_req.epoch, time=t, c=c,
+                epoch=eval_req.epoch, time=t, **kwargs,
             )
             if entry is not None:
                 # a quarantined (non-finite) row stays out of the store too
@@ -738,6 +917,12 @@ class DistOptimizer:
             self.save_evals()
             self.saved_eval_count = self.eval_count
 
+    def _use_async(self) -> bool:
+        """Stream results through ``submit_batch``: in the overlap modes,
+        with an evaluator that has it (a caller's evaluator may offer
+        ``evaluate_batch`` alone)."""
+        return self.pipeline.overlaps_io and hasattr(self.evaluator, "submit_batch")
+
     def _process_requests(self, allow_quorum: bool = False):
         """Drain pending evaluation requests through the evaluator.
 
@@ -757,12 +942,11 @@ class DistOptimizer:
                 self._finish_inflight(st)
         self._inflight = still_inflight
 
-        strat = self.optimizer_dict[0]
-        while strat.has_requests() and not self._time_exceeded():
+        while self._has_requests() and not self._time_exceeded():
             task_args, task_reqs = self._gather_rounds()
             if not task_args:
                 break
-            if self.pipeline.overlaps_io:
+            if self._use_async():
                 cfg = self.pipeline
                 handle = self.evaluator.submit_batch(
                     task_args, timeout=cfg.eval_timeout, retries=cfg.eval_retries,
@@ -838,13 +1022,15 @@ class DistOptimizer:
             self._process_requests()
 
     def run_epoch(self, completed_epoch: bool = False):
-        """One full epoch: drain the pending requests, then run the epoch
-        state machine to completion (reference dmosopt.py:1341-1470).
-        Epochs are labelled from ``start_epoch``, so a resumed run
-        continues the stored labels."""
+        """One full epoch: drain the pending requests, then run every
+        problem's epoch state machine to completion (reference
+        dmosopt.py:1341-1470). Epochs are labelled from ``start_epoch``,
+        so a resumed run continues the stored labels. With
+        ``tenant_batching`` and several problems the epochs open through
+        `tenants.initialize_epochs_batched`; ``epoch_stats`` then records
+        each problem's route."""
         epoch = self.start_epoch + self.epoch_count
         advance_epoch = (self.epoch_count + 1) < self.n_epochs
-        strat = self.optimizer_dict[0]
         t0 = time.perf_counter()
         wait0 = self.pipeline_stats["eval_wait_s"]
         launches0 = dict(KERNEL_LAUNCHES)
@@ -853,38 +1039,66 @@ class DistOptimizer:
         # batch: the one place speculative mode may return at quorum
         self._process_requests(allow_quorum=True)
         if self.dynamic_initial_sampling is not None and self.epoch_count == 0:
-            self._drain_dynamic_initial_samples(strat)
-        strat.initialize_epoch(epoch)
-        accuracy = None
-        if self.epoch_count > 0 and strat.folded_evals is not None:
-            # the rows the previous epoch's surrogate scheduled, folded
-            # into the archive as this epoch opened
-            accuracy = self._log_surrogate_accuracy(0, epoch - 1, strat.folded_evals)
+            for pid in sorted(self.problem_ids):
+                self._drain_dynamic_initial_samples(self.optimizer_dict[pid])
+        strategies = {pid: self.optimizer_dict[pid] for pid in sorted(self.problem_ids)}
+        if self.tenant_batching and len(strategies) > 1:
+            from dmosopt_tpu_torch.tenants import initialize_epochs_batched
+
+            routing = initialize_epochs_batched(
+                strategies, epoch, min_bucket=self.min_tenant_bucket,
+                logger=self.logger,
+            )
+        else:
+            for strat in strategies.values():
+                strat.initialize_epoch(epoch)
+            routing = {pid: "sequential" for pid in strategies}
+        accuracy = {}
+        if self.epoch_count > 0:
+            for pid, strat in strategies.items():
+                if strat.folded_evals is not None:
+                    # the rows the previous epoch's surrogate scheduled,
+                    # folded into the archive as this epoch opened
+                    accuracy[pid] = self._log_surrogate_accuracy(
+                        pid, epoch - 1, strat.folded_evals
+                    )
         self.stats["init_sampling_end"] = time.time()
-        done = completed_epoch
-        while not done:
+        pending = set() if completed_epoch else set(strategies)
+        while pending:
             if self._time_exceeded():
                 self.logger.warning("time limit exceeded; stopping epoch")
                 break
             self._process_requests()
-            state, res, completed_evals = strat.update_epoch(resample=advance_epoch)
-            if state == StrategyState.CompletedEpoch:
-                done = True
-                self._finish_problem_epoch(0, epoch, advance_epoch, res)
+            for pid in sorted(pending):
+                state, res, _ = strategies[pid].update_epoch(resample=advance_epoch)
+                if state == StrategyState.CompletedEpoch:
+                    pending.discard(pid)
+                    self._finish_problem_epoch(pid, epoch, advance_epoch, res)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
-        self.epoch_stats.append({
+
+        def problem_stats(pid):
+            acc = accuracy.get(pid)
+            return {**strategies[pid].stats,
+                    **({} if acc is None else {"surrogate_accuracy": acc})}
+
+        entry = {
             "epoch": epoch, "epoch_s": time.perf_counter() - t0,
             "eval_wait_s": self.pipeline_stats["eval_wait_s"] - wait0,
             "kernel_launches": {
                 k: n - launches0.get(k, 0) for k, n in KERNEL_LAUNCHES.items()
             },
-            **strat.stats,
-            **({} if accuracy is None else {"surrogate_accuracy": accuracy}),
-        })
+        }
+        if self.has_problem_ids:
+            entry["routing"] = routing
+            entry["problems"] = {pid: problem_stats(pid) for pid in strategies}
+        else:
+            entry.update(problem_stats(0))
+        self.epoch_stats.append(entry)
         if self.save:
-            self.save_stats(0, epoch)
-            self.save_refit_state(0)
+            for pid in sorted(self.problem_ids):
+                self.save_stats(pid, epoch)
+                self.save_refit_state(pid)
         # every write queued this epoch is in the file before the epoch
         # counts as done
         self._flush_writes()
@@ -986,17 +1200,14 @@ def run(
     ``compile_cache_dir`` is accepted and does nothing: the JAX package
     keeps XLA's compiled programs there, and the port compiles no
     programs (its Triton kernels cache themselves under
-    ``dmosopt_tpu_torch/_build``). ``return_features=True`` raises
-    `NotImplementedError`: features are not ported. The reference's
-    distwq keyword arguments (``_LEGACY_RUN_KWARGS``) are ignored, as the
-    JAX package ignores them; any other keyword raises `TypeError`."""
+    ``dmosopt_tpu_torch/_build``). ``return_features=True`` adds each
+    best set's feature records. The reference's distwq keyword arguments
+    (``_LEGACY_RUN_KWARGS``) are ignored, as the JAX package ignores
+    them; any other keyword raises `TypeError`. An evaluator the caller
+    passed in ``dopt_params["evaluator"]`` is left open."""
     unknown = sorted(k for k in kwargs if k not in _LEGACY_RUN_KWARGS)
     if unknown:
         raise TypeError(f"run() got unexpected keyword arguments {unknown}")
-    if return_features:
-        raise NotImplementedError(
-            "run(return_features=True): features are not ported to dmosopt_tpu_torch"
-        )
     dopt_params = dict(dopt_params)
     if time_limit is not None:
         dopt_params["time_limit"] = time_limit
@@ -1022,7 +1233,7 @@ def run(
         except Exception:
             dopt.logger.exception("discarding in-flight results failed")
         try:
-            dopt.evaluator.close()
+            dopt._close_evaluator()
         except Exception:
             dopt.logger.exception("evaluator close failed")
         try:
@@ -1033,4 +1244,7 @@ def run(
             if body_ok:
                 raise
             dopt.logger.exception("background writer close failed")
-    return dopt.get_best(feasible=feasible, return_constraints=return_constraints)
+    return dopt.get_best(
+        feasible=feasible, return_features=return_features,
+        return_constraints=return_constraints,
+    )

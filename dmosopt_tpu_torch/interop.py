@@ -1,8 +1,9 @@
 """State carried across from the JAX package, as plain numpy.
 
 Builds the port's GP fit (with a mesh-sharded fit's ``whitened``
-factor), a Nyström predictor cache, a sparse variational fit, a
-deep-kernel GP fit, NSGA-II, AGE-MOEA, MO-CMA-ES, SMPSO and TRS states
+factor, or a problems axis), a Nyström predictor cache, a sparse variational fit, a
+deep-kernel GP fit, NSGA-II (single and stacked, as the batched
+tenant core steps them), AGE-MOEA, MO-CMA-ES, SMPSO and TRS states
 and a fitted feasibility model from dicts of numpy arrays,
 e.g. ``{k: np.asarray(v) for k, v in fit._asdict().items()}`` of a JAX
 `GPFit` or `NSGA2State`, so the same numbers can go through both
@@ -36,11 +37,14 @@ def _tensor(v, device):
 def gp_fit_from_arrays(d: dict, device) -> GPFit:
     """A float32 `GPFit` on ``device`` from a dict of the JAX fit's
     fields, the mesh-sharded fit's whitening factor (``whitened``)
-    included."""
+    included. A fit with a problems axis (``fit_gp_problems``: every
+    field leads with (P,), ``n_steps`` one per problem) becomes the
+    port's stacked fit, ``n_steps`` their maximum (the port's batched
+    fit runs one step count for the bucket)."""
     d = {k: v for k, v in d.items() if v is not None and np.asarray(v).dtype != object}
     n_steps = d.pop("n_steps", None)
     fit = GPFit(**{k: _tensor(v, device) for k, v in d.items()})
-    fit.n_steps = None if n_steps is None else int(n_steps)
+    fit.n_steps = None if n_steps is None else int(np.max(n_steps))
     return fit
 
 
@@ -102,6 +106,19 @@ def nsga2_state_from_arrays(d: dict, device) -> NSGA2State:
     out["n_active"] = out["n_active"].to(torch.int32)
     out["last_is_crossover"] = out["last_is_crossover"].to(torch.bool)
     return NSGA2State(**out)
+
+
+def stacked_nsga2_state_from_arrays(states, device) -> NSGA2State:
+    """Stacked `NSGA2State` (every field with a leading (T,) tenants
+    axis, as the port's batched core steps them) from a dict of a
+    ``jax.vmap``-ed state's fields, or from a list of T per-tenant
+    dicts."""
+    if isinstance(states, dict):
+        return nsga2_state_from_arrays(states, device)
+    return nsga2_state_from_arrays(
+        {k: np.stack([np.asarray(s[k]) for s in states]) for k in NSGA2State.field_names()},
+        device,
+    )
 
 
 def agemoea_state_from_arrays(d: dict, device) -> AGEMOEAState:

@@ -22,8 +22,11 @@ protocol (MOASMO.py:248,422). `train` takes a per-problem
 surrogate's predictor inside the timed train phase, and past
 ``large_n_threshold`` training rows reroutes a dense-kernel surrogate to
 ``svgp`` (`_route_large_n`). With ``optimize_mean_variance`` the EA ranks
-the surrogate's mean and variance, 2·d columns. The JAX engine's custom
-training, meshes and telemetry are not ported.
+the surrogate's mean and variance, 2·d columns. A
+``surrogate_custom_training`` hook (an import path) replaces the
+optimizer class and the objective, feasibility and sensitivity models
+of an epoch, as in the JAX engine. Its meshes and telemetry are not
+ported.
 """
 
 from __future__ import annotations
@@ -37,6 +40,7 @@ import numpy as np
 import torch
 
 from dmosopt_tpu_torch.config import (
+    import_object_by_path,
     default_feasibility_methods,
     default_optimizers,
     default_sa_methods,
@@ -671,10 +675,13 @@ def epoch(
     feasibility_method_name=None,
     feasibility_method_kwargs: Optional[Dict[str, Any]] = None,
     surrogate_refit=None,
+    surrogate_custom_training=None,
+    surrogate_custom_training_kwargs: Optional[Dict[str, Any]] = None,
     optimize_mean_variance: bool = False,
     termination=None,
     local_random=None,
     logger=None,
+    file_path=None,
     device=None,
 ):
     """One MO-ASMO epoch as a host-side generator
@@ -706,8 +713,16 @@ def epoch(
     ``optimize_mean_variance`` the surrogate answers (mean, variance) and
     the optimizer ranks those 2·d columns; the design's rows enter it
     with zero variances, and the resample's predictions are 2·d wide
-    (``dmosopt_tpu/moasmo.py:1057-1065``). The JAX engine's
-    custom-training option is not ported.
+    (``dmosopt_tpu/moasmo.py:1057-1065``).
+
+    ``surrogate_custom_training``, an import path, is called as
+    ``custom_training(optimizer_cls, Xinit, Yinit, C, xlb, xub,
+    file_path, options=options, **surrogate_custom_training_kwargs)``,
+    ``options`` holding every method-selection option under its public
+    name (the ``*_kwargs`` as dicts) and ``return_mean_variance``; its four
+    returns replace the optimizer class and the objective, feasibility
+    and sensitivity models (``dmosopt_tpu/moasmo.py:1019-1095``), and the
+    steps below fit only what it left None.
     """
     nInput = len(param_names)
     nOutput = len(objective_names)
@@ -726,7 +741,28 @@ def epoch(
 
     optimizer_cls = resolve(optimizer_name, default_optimizers)
     mdl = Model(return_mean_variance=optimize_mean_variance)
-    if feasibility_method_name is not None and C is not None:
+    if surrogate_custom_training is not None:
+        custom_training = import_object_by_path(surrogate_custom_training)
+        # the hook sees every method-selection option under its public name
+        options = {
+            name: (value if not name.endswith("_kwargs") else (value or {}))
+            for name, value in (
+                ("optimizer_name", optimizer_name),
+                ("optimizer_kwargs", optimizer_kwargs),
+                ("surrogate_method_name", surrogate_method_name),
+                ("surrogate_method_kwargs", surrogate_method_kwargs),
+                ("feasibility_method_name", feasibility_method_name),
+                ("feasibility_method_kwargs", feasibility_method_kwargs),
+                ("sensitivity_method_name", sensitivity_method_name),
+                ("sensitivity_method_kwargs", sensitivity_method_kwargs),
+                ("return_mean_variance", optimize_mean_variance),
+            )
+        }
+        optimizer_cls, mdl.objective, mdl.feasibility, mdl.sensitivity = custom_training(
+            optimizer_cls, Xinit, Yinit, C, xlb, xub, file_path,
+            options=options, **(surrogate_custom_training_kwargs or {}),
+        )
+    if feasibility_method_name is not None and mdl.feasibility is None and C is not None:
         t0 = time.perf_counter()
         try:
             if logger is not None:
@@ -744,7 +780,7 @@ def epoch(
         _synchronize(device)
         stats["feasibility_s"] = time.perf_counter() - t0
 
-    if surrogate_method_name is not None:
+    if surrogate_method_name is not None and mdl.objective is None:
         t0 = time.perf_counter()
         mdl.objective = train(
             nInput, nOutput, xlb, xub, Xinit, Yinit, C,
@@ -758,7 +794,10 @@ def epoch(
         stats["train_s"] = time.perf_counter() - t0
 
     di_dict = {}
-    if sensitivity_method_name is not None:
+    if mdl.sensitivity is not None:
+        # a custom-training hook's sensitivity model (``di_dict()``)
+        di_dict = mdl.sensitivity.di_dict()
+    elif sensitivity_method_name is not None:
         t0 = time.perf_counter()
         di_dict = analyze_sensitivity(
             mdl.objective, xlb, xub, param_names, objective_names,

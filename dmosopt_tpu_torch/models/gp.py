@@ -4,6 +4,8 @@ Port of ``dmosopt_tpu/models/gp.py``: the `matern52` / `rbf` kernels,
 the bounded reparameterization `_Bounds`, `_regularized_kernel`,
 `_apply_train_mask`, `_nmll`, `_scan_with_convergence`, `fit_gp_batch`
 (with ``warm_start``; no mesh), `fit_gp_shared`, `gp_predict`, the
+problems-axis fit and predict of the batched tenant core
+(`fit_gp_problems`, `gp_predict_problems`), the
 cross-epoch posterior updates (`extend_cholesky_rank_k`,
 `posterior_from_params`, `clone_with_fit`), `_prepare_training_data`,
 `_pad_to_bucket`, and the surrogates `GPR_Matern`, `GPR_RBF`,
@@ -150,7 +152,7 @@ def _regularized_kernel(X, ls, amp, noise, kernel_fn, rel_jitter=None):
     amplitude and defaults from the input dtype."""
     if rel_jitter is None:
         rel_jitter = _default_rel_jitter(X.dtype)
-    N = X.shape[0]
+    N = X.shape[-2]
     jitter = _JITTER + rel_jitter * amp
     K = kernel_fn(X, X, ls, amp)
     K = 0.5 * (K + K.transpose(-1, -2))
@@ -167,7 +169,7 @@ def _apply_train_mask(K, train_mask):
     if train_mask is None:
         return K
     m = train_mask.to(K.dtype)
-    return (m[:, None] * m[None, :]) * K + torch.diag(1.0 - m)
+    return (m[..., :, None] * m[..., None, :]) * K + torch.diag_embed(1.0 - m)
 
 
 def _nmll(params: GPParams, bounds3, X, Y, kernel_fn, rel_jitter, train_mask=None):
@@ -180,12 +182,12 @@ def _nmll(params: GPParams, bounds3, X, Y, kernel_fn, rel_jitter, train_mask=Non
     amp = b_amp.forward(params.u_amp)
     ls = b_ls.forward(params.u_ls)
     noise = b_noise.forward(params.u_noise)
-    N = X.shape[0] if train_mask is None else torch.sum(train_mask)
+    N = X.shape[-2] if train_mask is None else torch.sum(train_mask, dim=-1)
     K = _apply_train_mask(
         _regularized_kernel(X, ls, amp, noise, kernel_fn, rel_jitter), train_mask
     )
     L, info = torch.linalg.cholesky_ex(K)
-    y = Y.T.expand(K.shape[:-1])  # (..., d, N)
+    y = Y.transpose(-1, -2).expand(K.shape[:-1])  # (..., d, N)
     alpha = _cho_solve(L, y[..., None])[..., 0]
     val = (
         0.5 * torch.sum(y * alpha, dim=-1)
@@ -350,7 +352,7 @@ def _posterior(X, Y, train_mask, amp, ls, noise, kernel_fn, rel_jitter):
         _regularized_kernel(X, ls, amp, noise, kernel_fn, rel_jitter), train_mask
     )
     L = _cholesky_or_nan(K)
-    return L, _cho_solve(L, Y.T[..., None])[..., 0]
+    return L, _cho_solve(L, Y.transpose(-1, -2)[..., None])[..., 0]
 
 
 def fit_gp_batch(
@@ -385,11 +387,74 @@ def fit_gp_batch(
     (d, L), (d,) from a previous converged fit (gp.py:305, :371-385):
     restart 0 then starts exactly there and the others are jittered
     around it by the same draws as a cold fit."""
-    N, n = X.shape
+    return _fit_gp(
+        generator, X, Y, train_mask, lengthscale_bounds, amplitude_bounds,
+        noise_bounds, kernel, n_starts, n_iter, learning_rate, ard, rel_jitter,
+        convergence_tol, convergence_check_every, warm_start,
+    )
+
+
+def fit_gp_problems(
+    generators,
+    X: torch.Tensor,  # (P, N, n) unit box, bucket-padded to a common N
+    Y: torch.Tensor,  # (P, N, d) standardized targets, zero on padded rows
+    train_mask: torch.Tensor,  # (P, N) 1 = real row
+    **common,
+) -> GPFit:
+    """`fit_gp_batch` over a leading problems axis
+    (``dmosopt_tpu/models/gp.py:602``): ONE Adam loop fits every problem
+    of a bucket, one batched Cholesky of a (P, S, d, N, N) tensor a
+    step. Each problem keeps its own restarts (jittered from its own
+    generator of ``generators``, drawn in the order its standalone fit
+    draws them), its own Adam moments and its own best-iterate tracking,
+    so its result is the math of its standalone `fit_gp_batch` at the
+    same padding. The convergence stop means "run while ANY problem
+    still improves", as under the JAX package's ``vmap``: a problem that
+    converged early takes further best-iterate-tracked steps, which can
+    only lower its winning NMLL.
+
+    The JAX package splits a bucket's fit into ``FIT_CHUNK = 8``
+    problems per call across CPU threads (``dmosopt_tpu/tenants.py:
+    326-362``), which only helps XLA on a CPU, where a batched Cholesky
+    runs its batch serially; on the card one call takes the whole
+    bucket. ``common`` takes `fit_gp_batch`'s keyword arguments but
+    ``warm_start``. Returns a `GPFit` whose tensors lead with (P,)
+    (``n_steps`` one int for all); `gp_predict_problems` reads it."""
+    common = dict(common)
+    common.pop("mesh", None)
+    common.pop("warm_start", None)
+    keys = ("lengthscale_bounds", "amplitude_bounds", "noise_bounds", "kernel",
+            "n_starts", "n_iter", "learning_rate", "ard", "rel_jitter",
+            "convergence_tol", "convergence_check_every")
+    defaults = dict(lengthscale_bounds=(1e-3, 100.0), amplitude_bounds=(1e-4, 1e3),
+                    noise_bounds=(1e-9, 1e-2), kernel="matern52", n_starts=8,
+                    n_iter=200, learning_rate=0.1, ard=False, rel_jitter=None,
+                    convergence_tol="auto", convergence_check_every=None)
+    unknown = sorted(set(common) - set(keys))
+    if unknown:
+        raise TypeError(f"fit_gp_problems: unexpected arguments {unknown}")
+    defaults.update(common)
+    if len(generators) != X.shape[0]:
+        raise ValueError(f"{len(generators)} generators for {X.shape[0]} problems")
+    return _fit_gp(list(generators), X, Y, train_mask,
+                   *(defaults[k] for k in keys), None)
+
+
+def _fit_gp(
+    generator, X, Y, train_mask, lengthscale_bounds, amplitude_bounds,
+    noise_bounds, kernel, n_starts, n_iter, learning_rate, ard, rel_jitter,
+    convergence_tol, convergence_check_every, warm_start,
+) -> GPFit:
+    """`fit_gp_batch`'s math for X (N, n) and one generator, or, with a
+    leading problems axis, X (P, N, n) and a list of P generators. The
+    (restart, objective) cells get their own axes after the problems
+    axis; inputs and masks are reshaped to broadcast over them."""
+    lead = tuple(X.shape[:-2])
+    N, n = X.shape[-2:]
     dt, dev = X.dtype, X.device
     if train_mask is not None:
-        Y = Y * train_mask[:, None].to(Y.dtype)
-    d = Y.shape[1]
+        Y = Y * train_mask[..., None].to(Y.dtype)
+    d = Y.shape[-1]
     convergence_tol, convergence_check_every = _resolve_convergence_defaults(
         d, convergence_tol, convergence_check_every
     )
@@ -409,37 +474,58 @@ def fit_gp_batch(
         return b.inverse(torch.as_tensor(value, dtype=dt, device=dev)).expand(shape)
 
     def jitter(shape):
-        return 2.0 * torch.randn(shape, generator=generator, dtype=dt, device=dev)
+        if not lead:
+            return 2.0 * torch.randn(shape, generator=generator, dtype=dt, device=dev)
+        out = torch.empty(lead + shape, dtype=dt, device=dev)
+        for i, g in enumerate(generator):  # each problem from its own stream
+            torch.randn(shape, generator=g, out=out[i])
+        return 2.0 * out
+
+    def cells(t, k):  # t (*lead, ...) -> (*lead, 1 x k, ...)
+        return t.reshape(lead + (1,) * k + tuple(t.shape[len(lead):]))
 
     start_mask = (torch.arange(n_starts, device=dev) > 0).to(dt)
     params = [
-        init(b_amp, anchors[0], (n_starts, d))
+        init(b_amp, anchors[0], lead + (n_starts, d))
         + start_mask[:, None] * jitter((n_starts, d)),
-        init(b_ls, anchors[1], (n_starts, d, Lls))
+        init(b_ls, anchors[1], lead + (n_starts, d, Lls))
         + start_mask[:, None, None] * jitter((n_starts, d, Lls)),
-        init(b_noise, anchors[2], (n_starts, d))
+        init(b_noise, anchors[2], lead + (n_starts, d))
         + start_mask[:, None] * jitter((n_starts, d)),
     ]
+    Xc, Yc = cells(X, 2), cells(Y, 1)
+    mc = None if train_mask is None else cells(train_mask, 2)
+    vals_shape = lead + (n_starts, d)
     best_params, final, n_steps = _minimize(
         params,
-        lambda *leaves: _nmll(GPParams(*leaves), bounds3, X, Y, kernel_fn,
-                              rel_jitter, train_mask),
-        (n_starts, d), learning_rate, n_iter, convergence_tol,
-        convergence_check_every, lambda v: torch.amin(v, dim=0),
+        lambda *leaves: _nmll(GPParams(*leaves), bounds3, Xc, Yc, kernel_fn,
+                              rel_jitter, mc),
+        vals_shape, learning_rate, n_iter, convergence_tol,
+        convergence_check_every, lambda v: torch.amin(v, dim=-2),
     )
-    best_start = torch.argmin(final, dim=0)  # (d,)
-    cols = torch.arange(d, device=dev)
-    u_amp, u_ls, u_noise = (p[best_start, cols] for p in best_params)
+    best_start = torch.argmin(final, dim=-2)  # (*lead, d)
+    k = len(lead)
+
+    def pick(p):  # the winning restart's cell per objective
+        extra = tuple(p.shape[k + 2:])
+        idx = best_start.unsqueeze(k).reshape(lead + (1, d) + (1,) * len(extra))
+        return torch.gather(p, k, idx.expand(lead + (1, d) + extra)).squeeze(k)
+
+    u_amp, u_ls, u_noise = (pick(p) for p in best_params)
     amp = b_amp.forward(u_amp)
     ls = b_ls.forward(u_ls)
     noise = b_noise.forward(u_noise)
 
-    L, alpha = _posterior(X, Y, train_mask, amp, ls, noise, kernel_fn, rel_jitter)
-    tm = torch.ones(N, dtype=dt, device=dev) if train_mask is None else train_mask.to(dt)
+    L, alpha = _posterior(
+        cells(X, 1), Y, None if train_mask is None else cells(train_mask, 1),
+        amp, ls, noise, kernel_fn, rel_jitter,
+    )
+    tm = (torch.ones(lead + (N,), dtype=dt, device=dev) if train_mask is None
+          else train_mask.to(dt))
     return GPFit(X=X, L=L, alpha=alpha, amp=amp, ls=ls, noise=noise,
-                 y_mean=torch.zeros(d, dtype=dt, device=dev),
-                 y_std=torch.ones(d, dtype=dt, device=dev),
-                 nmll=torch.amin(final, dim=0), train_mask=tm,
+                 y_mean=torch.zeros(lead + (d,), dtype=dt, device=dev),
+                 y_std=torch.ones(lead + (d,), dtype=dt, device=dev),
+                 nmll=torch.amin(final, dim=-2), train_mask=tm,
                  n_steps=n_steps, best_start=best_start)
 
 
@@ -447,18 +533,27 @@ def gp_predict(fit: GPFit, Xq: torch.Tensor, kernel: str = "matern52"):
     """Posterior mean and variance of all d GPs at query points (M, n),
     variance including the fitted noise level (sklearn's
     ``predict(return_std=True)`` with a WhiteKernel, reference
-    model.py:1266-1270). Returns ((M, d), (M, d))."""
-    Ks = _KERNELS[kernel](fit.X, Xq, fit.ls, fit.amp)  # (d, N, M)
-    # padded training rows carry no information: zero their
-    # cross-covariance so the posterior equals the unpadded one
-    Ks = Ks * fit.train_mask[:, None].to(Ks.dtype)
+    model.py:1266-1270). Returns ((M, d), (M, d)); a fit and queries
+    with a leading problems axis give ((P, M, d), (P, M, d))."""
+    Ks = _KERNELS[kernel](fit.X.unsqueeze(-3), Xq.unsqueeze(-3), fit.ls, fit.amp)
+    # (..., d, N, M); padded training rows carry no information: zero
+    # their cross-covariance so the posterior equals the unpadded one
+    Ks = Ks * fit.train_mask[..., None, :, None].to(Ks.dtype)
     mean = torch.matmul(Ks.transpose(-1, -2), fit.alpha[..., None])[..., 0]
     v = torch.linalg.solve_triangular(fit.L, Ks, upper=False)
-    var = fit.amp[:, None] + fit.noise[:, None] - torch.sum(v * v, dim=-2)
+    var = fit.amp[..., None] + fit.noise[..., None] - torch.sum(v * v, dim=-2)
     var = torch.clamp(var, min=1e-12)
-    mean = fit.y_mean[:, None] + fit.y_std[:, None] * mean
-    var = (fit.y_std * fit.y_std)[:, None] * var
-    return mean.T, var.T
+    mean = fit.y_mean[..., None] + fit.y_std[..., None] * mean
+    var = (fit.y_std * fit.y_std)[..., None] * var
+    return mean.transpose(-1, -2), var.transpose(-1, -2)
+
+
+def gp_predict_problems(fit: GPFit, Xq: torch.Tensor, kernel: str = "matern52"):
+    """`gp_predict` over a problems-stacked `GPFit` (`fit_gp_problems`)
+    and per-problem queries ``Xq`` (P, M, n): ((P, M, d), (P, M, d)),
+    each problem's solve-oracle posterior, batched into one set of
+    launches (``dmosopt_tpu/models/gp.py:636``)."""
+    return gp_predict(fit, Xq, kernel=kernel)
 
 
 def fit_gp_shared(

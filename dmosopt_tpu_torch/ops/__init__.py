@@ -8,6 +8,7 @@ from dmosopt_tpu_torch.ops.distances import (  # noqa: F401
     crowding_distance,
     duplicate_mask,
     euclidean_distance_metric,
+    pairwise_distances,
 )
 from dmosopt_tpu_torch.ops.sort import (  # noqa: F401
     lexsort,

@@ -2,10 +2,9 @@
 euclidean metric and the duplicate-row mask.
 
 Port of ``dmosopt_tpu/ops/distances.py`` (`crowding_distance` :26,
-`euclidean_distance_metric` :70, `duplicate_mask` :175). The pairwise
-distance kernels of that module are not on the port's path; host-side
-duplicate detection uses `moasmo.get_duplicates` (float64 numpy), as
-the reference does.
+`euclidean_distance_metric` :70, `pairwise_distances` :113,
+`duplicate_mask` :175). Host-side duplicate detection uses
+`moasmo.get_duplicates` (float64 numpy), as the reference does.
 
 The per-objective order is a STABLE sort, as `jnp.argsort` is, so tied
 objective values get the same neighbours in both packages. The
@@ -87,6 +86,29 @@ def _default_row_chunk(n: int) -> int:
     """Row-block size of the chunked duplicate mask: the whole array up
     to 1024 rows (one block is the dense form), 1024 beyond."""
     return n if n <= 1024 else 1024
+
+
+def _pairwise_block(X, Y, y2):
+    x2 = torch.sum(X * X, dim=1, keepdim=True)
+    # full float32 product (TF32 stays off): the identity cancels
+    sq = x2 + y2.T - 2.0 * torch.matmul(X, Y.T)
+    return torch.sqrt(torch.clamp(sq, min=0.0))
+
+
+def pairwise_distances(X: torch.Tensor, Y=None, row_chunk=None) -> torch.Tensor:
+    """Euclidean cdist (N, M) as the matmul identity
+    ``|x|² + |y|² - 2 x·y`` (clamped at 0), computed in ``row_chunk``-row
+    blocks so the working set beyond the output stays bounded (one block
+    up to 1024 rows), as the reference computes it."""
+    if Y is None:
+        Y = X
+    B = int(row_chunk) if row_chunk is not None else _default_row_chunk(X.shape[0])
+    y2 = torch.sum(Y * Y, dim=1, keepdim=True)
+    if B >= X.shape[0]:
+        return _pairwise_block(X, Y, y2)
+    return torch.cat(
+        [_pairwise_block(X[i:i + B], Y, y2) for i in range(0, X.shape[0], B)]
+    )
 
 
 def _duplicate_mask_dense(X, eps, mask):

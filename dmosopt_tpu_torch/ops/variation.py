@@ -81,12 +81,21 @@ def sbx(u, parents1, parents2, di, xlb, xub):
 
 def _pair_indices(r, pool_n, shift_hi):
     """Two distinct mating-pool slots per pair (when ``pool_n >= 2``):
-    ``i1`` uniform on [0, pool_n) from ``r[0]``, ``i2`` = ``i1`` shifted by
-    a uniform draw on [1, shift_hi) from ``r[1]``, modulo ``pool_n``. The
-    float32 product truncates below ``pool_n`` because ``r < 1``."""
-    i1 = (r[0] * pool_n).long()
-    shift = 1 + (r[1] * (shift_hi - 1)).long()
+    ``i1`` uniform on [0, pool_n) from ``r[..., 0, :]``, ``i2`` = ``i1``
+    shifted by a uniform draw on [1, shift_hi) from ``r[..., 1, :]``,
+    modulo ``pool_n``. The float32 product truncates below ``pool_n``
+    because ``r < 1``. ``pool_n``/``shift_hi`` are 0-d, or (T,) for a
+    leading tenants axis of ``r``."""
+    pool_n, shift_hi = pool_n.unsqueeze(-1), shift_hi.unsqueeze(-1)
+    i1 = (r[..., 0, :] * pool_n).long()
+    shift = 1 + (r[..., 1, :] * (shift_hi - 1)).long()
     return i1, (i1 + shift) % pool_n
+
+
+def _pool_rows(parm, pool_idx, i):
+    """``parm[pool_idx[i]]``, per tenant under a leading axis."""
+    rows = torch.gather(pool_idx, -1, i)
+    return torch.gather(parm, -2, rows.unsqueeze(-1).expand(*rows.shape, parm.shape[-1]))
 
 
 def _offspring_core(
@@ -101,16 +110,21 @@ def _offspring_core(
     at rate pm). A crossover slot emits the SBX pair (uniforms ``u[0]``),
     a mutation slot both parents mutated (``u[1]``, ``u[2]``). Returns the
     (2*npairs, n) offspring, slot i's children in rows i and i+npairs,
-    and the (npairs,) bool operator tags."""
+    and the (npairs,) bool operator tags. A bucket of T tenants (the
+    problem-batched core) puts a leading (T,) axis on every operand and
+    result, as `launch_offspring` takes it."""
     i1, i2 = _pair_indices(r, pool_n, shift_hi)
-    p1, p2 = parm[pool_idx[i1]], parm[pool_idx[i2]]
-    pc, pm = crossover_prob, mutation_prob
-    is_x = r[2] < (2.0 * pc) / (2.0 * pc + pm)
-    c1, c2 = _sbx_core(u[0], p1, p2, di_crossover, xlb, xub)
-    m1 = _mutation_core(u[1], p1, di_mutation, xlb, xub, mutation_rate)
-    m2 = _mutation_core(u[2], p2, di_mutation, xlb, xub, mutation_rate)
-    sel = is_x[:, None]
-    return torch.cat([torch.where(sel, c1, m1), torch.where(sel, c2, m2)]), is_x
+    p1, p2 = _pool_rows(parm, pool_idx, i1), _pool_rows(parm, pool_idx, i2)
+    pc, pm = crossover_prob.unsqueeze(-1), mutation_prob.unsqueeze(-1)
+    is_x = r[..., 2, :] < (2.0 * pc) / (2.0 * pc + pm)
+    gene = lambda v: v.unsqueeze(-2)  # noqa: E731  (n,) or (T, n) -> rows
+    lb, ub = gene(xlb), gene(xub)
+    rate = mutation_rate.unsqueeze(-1).unsqueeze(-1)
+    c1, c2 = _sbx_core(u[..., 0, :, :], p1, p2, gene(di_crossover), lb, ub)
+    m1 = _mutation_core(u[..., 1, :, :], p1, gene(di_mutation), lb, ub, rate)
+    m2 = _mutation_core(u[..., 2, :, :], p2, gene(di_mutation), lb, ub, rate)
+    sel = is_x.unsqueeze(-1)
+    return torch.cat([torch.where(sel, c1, m1), torch.where(sel, c2, m2)], dim=-2), is_x
 
 
 def offspring(
@@ -118,16 +132,31 @@ def offspring(
     mutation_rate, di_crossover, di_mutation, xlb, xub,
 ):
     """The NSGA-II offspring step of `_offspring_core`, routed by device:
-    the fused Triton kernel for CUDA tensors (one launch), the plain core
-    for CPU ones. ``pool_n``/``shift_hi`` are 0-d integer tensors (device
-    state under an adaptive population size) and the rates 0-d float
-    tensors, so AGE-MOEA and constrained sampling, which run the same
-    slot, can call it with their own state."""
+    the fused Triton kernel for CUDA tensors (one launch, for one
+    population or a whole bucket of tenants), the plain core for CPU
+    ones. ``pool_n``/``shift_hi`` are 0-d integer tensors (device state
+    under an adaptive population size) and the rates 0-d float tensors,
+    so AGE-MOEA and constrained sampling, which run the same slot, can
+    call it with their own state; a bucket gives each a leading (T,)
+    axis."""
     args = (parm, pool_idx, r, u, pool_n, shift_hi, crossover_prob,
             mutation_prob, mutation_rate, di_crossover, di_mutation, xlb, xub)
     if parm.is_cuda:
         return _variation_kernels.launch_offspring(*args)
     return _offspring_core(*args)
+
+
+def draw_uniform(generator, shape, device, dtype=torch.float32) -> torch.Tensor:
+    """U[0, 1) draws of ``shape`` from ``generator``; from a sequence of
+    T generators, a (T, *shape) tensor whose row t comes from generator
+    t, as that tenant's own sequential draw would (the problem-batched
+    core keeps one stream a tenant)."""
+    if isinstance(generator, torch.Generator):
+        return torch.rand(shape, generator=generator, dtype=dtype, device=device)
+    out = torch.empty((len(generator), *shape), dtype=dtype, device=device)
+    for t, g in enumerate(generator):
+        torch.rand(shape, generator=g, out=out[t])
+    return out
 
 
 def _per_gene(v, like: torch.Tensor, n: int) -> torch.Tensor:
@@ -193,16 +222,17 @@ def tournament_probabilities(n: int, p: float = 0.5, device=None) -> torch.Tenso
 def _tournament_order(rank, *tiebreak_metrics, mask=None):
     """(order, prob): the population sorted best-first by (rank,
     *tiebreaks) and the geometric selection probability of each sorted
-    position (zero for masked rows)."""
-    n = rank.shape[0]
+    position (zero for masked rows); a leading tenants axis of ``rank``
+    orders each tenant's population on its own."""
+    n = rank.shape[-1]
     keys = [rank.to(torch.float64 if rank.dtype == torch.float64 else torch.float32)]
     keys += [torch.as_tensor(m) for m in tiebreak_metrics]
     order = lexsort(keys[::-1])  # rank most significant
     prob = tournament_probabilities(n, device=rank.device)
     if mask is not None:
-        valid_sorted = mask.to(torch.bool)[order]
+        valid_sorted = torch.gather(mask.to(torch.bool).expand(order.shape), -1, order)
         prob = torch.where(valid_sorted, prob, torch.zeros_like(prob))
-        prob = prob / prob.sum()
+        prob = prob / prob.sum(dim=-1, keepdim=True)
     return order, prob
 
 
@@ -212,11 +242,11 @@ def _gumbel_top_k(order, prob, gumbel, poolsize: int):
     scores = torch.log(torch.clamp(prob, min=1e-38)) + gumbel
     scores = torch.where(prob > 0, scores, torch.full_like(scores, -torch.inf))
     top = torch.topk(scores, poolsize).indices
-    return order[top]
+    return torch.gather(order, -1, top)
 
 
 def tournament_selection(
-    generator: torch.Generator,
+    generator,
     poolsize: int,
     rank: torch.Tensor,
     *tiebreak_metrics: torch.Tensor,
@@ -226,10 +256,11 @@ def tournament_selection(
     on their sorted position. ``rank`` is the primary sort key
     (ascending); ``tiebreak_metrics`` apply in decreasing significance.
     Returns indices into the population (reference
-    ``dmosopt_tpu/ops/variation.py:167``)."""
+    ``dmosopt_tpu/ops/variation.py:167``). With a leading tenants axis
+    of ``rank`` (stacked states), ``generator`` is a sequence of T
+    generators and tenant t's Gumbels come from generator t
+    (`draw_uniform`)."""
     order, prob = _tournament_order(rank, *tiebreak_metrics, mask=mask)
-    u = torch.rand(
-        prob.shape, generator=generator, dtype=prob.dtype, device=prob.device
-    )
+    u = draw_uniform(generator, prob.shape[-1:], prob.device, prob.dtype)
     gumbel = -torch.log(-torch.log(u.clamp(min=torch.finfo(u.dtype).tiny)))
     return _gumbel_top_k(order, prob, gumbel, poolsize)

@@ -13,6 +13,17 @@ own (the rank relaxation in `ops.dominance` checks convergence once per
 `CHECK_EVERY` steps). A generation's offspring step (pair picks, parent
 gather, SBX, both mutations, operator select) is one call of
 `ops.offspring`, one Triton kernel launch on a CUDA device.
+
+The three state functions also take stacked states, every tensor with
+a leading (T,) tenants axis (per-tenant scalars (T,), bounds (T, n, 2),
+per-gene vectors (T, n)), and for them a sequence of T generators:
+what the JAX package gets from ``jax.vmap`` over the generation
+(``dmosopt_tpu/tenants.py:433-467``, ``:617-623``). Each tenant's
+Gumbels and uniforms come from its own generator in the sequential
+order, and the bucket's offspring step is one launch. The same code
+serves both: a single state is the case without the leading axis.
+Stacked states carry a fixed population size (the batched core routes
+adaptive population sizes to the sequential path).
 """
 
 from __future__ import annotations
@@ -25,10 +36,12 @@ import torch
 from dmosopt_tpu_torch.optimizers.adaptive import adapt_population_size
 from dmosopt_tpu_torch.optimizers.base import MOEA
 from dmosopt_tpu_torch.ops import offspring, sort_mo, tournament_selection
+from dmosopt_tpu_torch.ops.variation import draw_uniform
 
 
 @dataclass
 class NSGA2State:
+    # shapes of one population; stacked states lead each with (T,)
     population_parm: torch.Tensor  # (cap, n)
     population_obj: torch.Tensor  # (cap, d)
     rank: torch.Tensor  # (cap,) int32
@@ -105,6 +118,9 @@ class NSGA2(MOEA):
     # ------------------------------------------------------ state functions
 
     def initialize_state(self, generator, x, y, bounds, mask=None) -> NSGA2State:
+        """The sorted initial population of (x, y); with a leading (T,)
+        axis on ``x``, ``y``, ``bounds`` and ``mask`` each tenant's on its
+        own (stacked states)."""
         n = self.nInput
         pop = self.capacity
         xs, ys, rank, _, _ = sort_mo(
@@ -114,19 +130,20 @@ class NSGA2(MOEA):
             mask=mask,
         )
         dev = xs.device
+        lead = tuple(x.shape[:-2])
 
         def scalar(v):
-            return torch.tensor(float(v), dtype=torch.float32, device=dev)
+            return torch.full(lead, float(v), dtype=torch.float32, device=dev)
 
         def per_gene(v):
             t = torch.as_tensor(v, dtype=torch.float32, device=dev)
-            return torch.broadcast_to(t, (n,)).clone()
+            return torch.broadcast_to(t, lead + (n,)).clone()
 
         zero = scalar(0.0)
         return NSGA2State(
-            population_parm=xs[:pop],
-            population_obj=ys[:pop],
-            rank=rank[:pop],
+            population_parm=xs[..., :pop, :],
+            population_obj=ys[..., :pop, :],
+            rank=rank[..., :pop],
             bounds=bounds,
             di_crossover=per_gene(self.opt_params.di_crossover),
             di_mutation=per_gene(self.opt_params.di_mutation),
@@ -137,16 +154,20 @@ class NSGA2(MOEA):
             total_crossovers=zero,
             successful_mutations=zero,
             total_mutations=zero,
-            last_is_crossover=torch.zeros(2 * (pop // 2), dtype=torch.bool, device=dev),
-            n_active=torch.tensor(min(self.popsize, pop), dtype=torch.int32, device=dev),
+            last_is_crossover=torch.zeros(
+                lead + (2 * (pop // 2),), dtype=torch.bool, device=dev
+            ),
+            n_active=torch.full(lead, min(self.popsize, pop), dtype=torch.int32,
+                                device=dev),
         )
 
     def generate_strategy(self, generator, state: NSGA2State):
         pop = self.capacity
         poolsize = self.opt_params.poolsize
         npairs = pop // 2
-        xlb, xub = state.bounds[:, 0], state.bounds[:, 1]
+        xlb, xub = state.bounds[..., 0], state.bounds[..., 1]
         dev = state.population_parm.device
+        lead = tuple(state.rank.shape[:-1])  # (T,) for stacked states
 
         if self.adaptive_population_size:
             # only live rows enter the mating pool; pair sampling is
@@ -161,15 +182,15 @@ class NSGA2(MOEA):
             shift_hi = torch.clamp(pool_n, min=2)
         else:
             pool_idx = tournament_selection(generator, poolsize, state.rank)
-            pool_n = shift_hi = self._fixed_pool_n(poolsize, dev)
+            pool_n = shift_hi = self._fixed_pool_n(poolsize, dev).expand(lead)
 
         # one draw for the whole step: per pair slot the first parent's
         # pick, the shift to the second and the operator draw (r); per
         # gene the SBX and the two mutation uniforms (u)
-        n = state.population_parm.shape[1]
-        draws = torch.rand(3 * npairs * (n + 1), generator=generator, device=dev)
-        r = draws[: 3 * npairs].view(3, npairs)
-        u = draws[3 * npairs:].view(3, npairs, n)
+        n = state.population_parm.shape[-1]
+        draws = draw_uniform(generator, (3 * npairs * (n + 1),), dev)
+        r = draws[..., : 3 * npairs].view(*lead, 3, npairs)
+        u = draws[..., 3 * npairs:].view(*lead, 3, npairs, n)
         x_gen, is_x = offspring(
             state.population_parm, pool_idx, r, u, pool_n, shift_hi,
             state.crossover_prob, state.mutation_prob, state.mutation_rate,
@@ -178,9 +199,9 @@ class NSGA2(MOEA):
 
         # offspring slot i and i+npairs share one operator draw
         state = state._replace(
-            total_crossovers=state.total_crossovers + is_x.sum(),
-            total_mutations=state.total_mutations + 2.0 * (~is_x).sum(),
-            last_is_crossover=torch.cat([is_x, is_x]),
+            total_crossovers=state.total_crossovers + is_x.sum(-1),
+            total_mutations=state.total_mutations + 2.0 * (~is_x).sum(-1),
+            last_is_crossover=torch.cat([is_x, is_x], dim=-1),
         )
         return x_gen, state
 
@@ -194,11 +215,11 @@ class NSGA2(MOEA):
 
     def update_strategy(self, state: NSGA2State, x_gen, y_gen) -> NSGA2State:
         pop = self.capacity
-        noff = x_gen.shape[0]
+        noff = x_gen.shape[-2]
         dev = x_gen.device
 
-        parm = torch.cat([x_gen, state.population_parm], dim=0)
-        obj = torch.cat([y_gen, state.population_obj], dim=0)
+        parm = torch.cat([x_gen, state.population_parm], dim=-2)
+        obj = torch.cat([y_gen, state.population_obj], dim=-2)
 
         mask = None
         if self.adaptive_population_size:
@@ -214,11 +235,12 @@ class NSGA2(MOEA):
             y_distance_metrics=self.y_distance_metrics,
             mask=mask,
         )
-        keep = perm[:pop]
+        keep = perm[..., :pop]
         survived_off = keep < noff  # offspring that made it
 
         state = state._replace(
-            population_parm=xs[:pop], population_obj=ys[:pop], rank=rank[:pop]
+            population_parm=xs[..., :pop, :], population_obj=ys[..., :pop, :],
+            rank=rank[..., :pop],
         )
 
         if self.adaptive_population_size:
@@ -236,10 +258,13 @@ class NSGA2(MOEA):
         if self.opt_params.adaptive_operator_rates:
             is_x = state.last_is_crossover
             surv_idx = torch.where(survived_off, keep, torch.full_like(keep, noff))
-            is_x_pad = torch.cat([is_x, torch.zeros(1, dtype=torch.bool, device=dev)])
-            surv_is_x = is_x_pad[surv_idx] & survived_off
-            n_surv_x = surv_is_x.sum() / 2.0
-            n_surv_m = (survived_off & ~is_x_pad[surv_idx]).sum()
+            is_x_pad = torch.cat(
+                [is_x, torch.zeros(is_x.shape[:-1] + (1,), dtype=torch.bool, device=dev)],
+                dim=-1,
+            )
+            surv_tag = torch.gather(is_x_pad, -1, surv_idx)
+            n_surv_x = (surv_tag & survived_off).sum(-1) / 2.0
+            n_surv_m = (survived_off & ~surv_tag).sum(-1)
             state = state._replace(
                 successful_crossovers=state.successful_crossovers + n_surv_x,
                 successful_mutations=state.successful_mutations + n_surv_m,

@@ -7,8 +7,8 @@ Port of ``dmosopt_tpu/parallel/evaluator.py``, without telemetry:
   ``n_workers``;
 - `TorchBatchEvaluator`, the counterpart of `JaxBatchEvaluator` (:550)
   (``jax_objective=True`` there, ``torch_objective=True`` here): the
-  objective is a batched torch function, one call per batch on the
-  run's device.
+  objective is a batched torch function, one call per problem per batch
+  on the run's device.
 
 Both return the reference worker protocol, ``{problem_id: result,
 "time": seconds}`` per request, from a blocking ``evaluate_batch`` and
@@ -379,8 +379,8 @@ class _TorchEvalHandle(AsyncEvalHandle):
 
     def __init__(self, total: int, chunks: List[Tuple[List[int], Any, Any, float]]):
         super().__init__(total)
-        # [(batch indices, host outputs (a tuple), CUDA event or None,
-        #   t_submit)]
+        # [(batch indices, rounds, {problem_id: (round positions, host
+        #   outputs)}, CUDA event or None, t_submit)]
         self._chunks = list(chunks)
         self._buffer: List[Tuple[int, Dict]] = []
 
@@ -389,11 +389,16 @@ class _TorchEvalHandle(AsyncEvalHandle):
         return event is None or event.query()
 
     def _open_chunk(self):
-        indices, host_outs, _event, t_submit = self._chunks.pop(0)
+        indices, part, host_by_problem, _event, t_submit = self._chunks.pop(0)
         self.t_landed = time.perf_counter()
         dt = (time.time() - t_submit) / max(self.total, 1)
-        rows = _split_rows(tuple(h.numpy() for h in host_outs))
-        self._buffer = [(i, {0: row, "time": dt}) for i, row in zip(indices, rows)]
+        results = _rounds_to_results(part, {
+            pid: (idx, tuple(h.numpy() for h in outs))
+            for pid, (idx, outs) in host_by_problem.items()
+        })
+        for r in results:
+            r["time"] = dt
+        self._buffer = list(zip(indices, results))
 
     def poll(self, timeout: Optional[float] = None):
         """Next result of the first unfinished chunk. A chunk whose event
@@ -403,7 +408,7 @@ class _TorchEvalHandle(AsyncEvalHandle):
         if not self._buffer:
             if not self._chunks:
                 return None
-            event = self._chunks[0][2]
+            event = self._chunks[0][3]
             if timeout is None:
                 if event is not None:
                     event.synchronize()
@@ -428,33 +433,44 @@ class _TorchEvalHandle(AsyncEvalHandle):
 
     def drain_completed(self):
         out = []
-        while self._buffer or (self._chunks and self._ready(self._chunks[0][2])):
+        while self._buffer or (self._chunks and self._ready(self._chunks[0][3])):
             out.append(self.poll())
         return out
 
 
-def _split_rows(outs):
-    """Per-row results of a batch's host outputs: the objective row, or
-    the tuple of each output's row (the ``(y, c)`` protocol)."""
-    if len(outs) == 1:
-        return list(outs[0])
-    return [tuple(o[j] for o in outs) for j in range(outs[0].shape[0])]
+def _rounds_to_results(rounds, outs_by_problem):
+    """Worker-protocol result dicts for ``rounds`` from the per-problem
+    host output tuples ``{problem_id: (round positions, outputs)}``: each
+    problem's row, or the tuple of each output's row (the ``(y, c)``,
+    ``(y, f)`` and ``(y, f, c)`` protocols)
+    (``dmosopt_tpu/parallel/evaluator.py:651``)."""
+    results: List[Dict] = [dict() for _ in rounds]
+    for problem_id, (idx, outs) in outs_by_problem.items():
+        for j, i in enumerate(idx):
+            row = tuple(o[j] for o in outs)
+            results[i][problem_id] = row[0] if len(row) == 1 else row
+    return results
 
 
 class TorchBatchEvaluator:
-    """Evaluate a batched torch objective, one call per batch or chunk
-    (one problem, id 0).
+    """Evaluate a batched torch objective, one call per problem per batch
+    or chunk.
 
     ``batch_fun`` maps a (B, n) float32 tensor of flat parameter vectors
     on ``device`` to objectives (B, d) on any device, or to a tuple of
-    per-row outputs, objectives first (``(y, c)`` when the problem has
-    constraints), as the JAX package's batch evaluator takes
+    per-row outputs, objectives first (``(y, f)``, ``(y, c)`` or ``(y,
+    f, c)`` when the problem has features or constraints), as the JAX
+    package's batch evaluator takes them
     (``dmosopt_tpu/parallel/evaluator.py:554-575``): each output is
-    copied to the host and split per row."""
+    copied to the host and split per row. With several ``problem_ids``
+    each round holds one request per problem, and every problem present
+    in a batch gets one objective call of its stacked rows
+    (`_stack_problems`, ``:663``)."""
 
-    def __init__(self, batch_fun: Callable, device):
+    def __init__(self, batch_fun: Callable, device, problem_ids=None):
         self.batch_fun = batch_fun
         self.device = torch.device(device)
+        self.problem_ids = list(problem_ids) if problem_ids is not None else [0]
 
     def _launch(self, X: np.ndarray) -> Tuple[torch.Tensor, ...]:
         x = torch.as_tensor(X, dtype=torch.float32, device=self.device)
@@ -463,28 +479,43 @@ class TorchBatchEvaluator:
             out = (out,)
         return tuple(torch.as_tensor(o).detach() for o in out)
 
+    def _stack_problems(self, rounds):
+        """{problem_id: (round positions, stacked X)} over ``rounds``; a
+        round may hold a subset of the problems (unequal queues)."""
+        stacked = {}
+        for problem_id in self.problem_ids:
+            idx = [i for i, sv in enumerate(rounds) if problem_id in sv]
+            if idx:
+                stacked[problem_id] = (idx, np.stack([rounds[i][problem_id] for i in idx]))
+        return stacked
+
     def evaluate_batch(
         self, space_vals_list: Sequence[Dict[Any, np.ndarray]]
     ) -> List[Dict]:
         if not space_vals_list:
             return []
         t0 = time.time()
-        outs = self._launch(np.stack([sv[0] for sv in space_vals_list]))
-        rows = _split_rows(tuple(o.cpu().numpy() for o in outs))
+        outs_by_problem = {
+            pid: (idx, tuple(o.cpu().numpy() for o in self._launch(X)))
+            for pid, (idx, X) in self._stack_problems(space_vals_list).items()
+        }
+        results = _rounds_to_results(space_vals_list, outs_by_problem)
         dt = (time.time() - t0) / len(space_vals_list)
-        return [{0: row, "time": dt} for row in rows]
+        for r in results:
+            r["time"] = dt
+        return results
 
     def submit_batch(
         self, space_vals_list: Sequence[Dict[Any, np.ndarray]],
         n_chunks: int = 1, **_unused,
     ) -> AsyncEvalHandle:
         """Split the batch into up to ``n_chunks`` chunks of
-        ``ceil(B / n_chunks)`` rows (the last may be shorter) and launch
-        them all now on the current stream, each followed by a
-        non-blocking copy of its objectives into pinned host memory and
-        a CUDA event; nothing here waits for the device. Per-request
-        timeouts and retries do not apply (a device call completes or
-        the run is lost)."""
+        ``ceil(B / n_chunks)`` rounds (the last may be shorter) and launch
+        them all now on the current stream, each problem's call followed
+        by a non-blocking copy of its outputs into pinned host memory,
+        and each chunk by a CUDA event; nothing here waits for the
+        device. Per-request timeouts and retries do not apply (a device
+        call completes or the run is lost)."""
         rounds = list(space_vals_list)
         B = len(rounds)
         n_chunks = max(1, min(int(n_chunks), B)) if B else 1
@@ -493,21 +524,27 @@ class TorchBatchEvaluator:
         chunks = []
         for start in range(0, B, chunk_len):
             part = rounds[start:start + chunk_len]
-            outs = self._launch(np.stack([sv[0] for sv in part]))
+            host_by_problem, on_card = {}, False
+            for pid, (idx, X) in self._stack_problems(part).items():
+                outs = self._launch(X)
+                if any(o.is_cuda for o in outs):
+                    on_card = True
+                    host = []
+                    for o in outs:
+                        h = torch.empty(o.shape, dtype=o.dtype, pin_memory=True)
+                        h.copy_(o, non_blocking=True)
+                        host.append(h)
+                    host = tuple(host)
+                else:
+                    host = tuple(o.clone() for o in outs)
+                host_by_problem[pid] = (idx, host)
             event = None
-            if any(o.is_cuda for o in outs):
-                host = []
-                for o in outs:
-                    h = torch.empty(o.shape, dtype=o.dtype, pin_memory=True)
-                    h.copy_(o, non_blocking=True)
-                    host.append(h)
-                host = tuple(host)
+            if on_card:
                 event = torch.cuda.Event()
                 event.record()
-            else:
-                host = tuple(o.clone() for o in outs)
             chunks.append(
-                (list(range(start, start + len(part))), host, event, t_submit)
+                (list(range(start, start + len(part))), part, host_by_problem,
+                 event, t_submit)
             )
         return _TorchEvalHandle(B, chunks)
 

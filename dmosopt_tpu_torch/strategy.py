@@ -24,8 +24,15 @@ variance], and a mean-only prediction gets zero variances
 (``dmosopt_tpu/strategy.py:237-240, :335-338``). The rows folded into
 the archive as an epoch opens (the previous epoch's resample batch, with
 the predictions that scheduled them) stay in ``folded_evals`` for the
-driver's surrogate-accuracy log. Features are not ported; the driver
-rejects them.
+driver's surrogate-accuracy log. Features (``prob.feature_dtypes``) are
+archived as flat float64 columns (``f``; `storage.feature_columns`) and
+handed back through the problem's ``feature_constructor`` by
+`get_best_evals` and `get_evals` (``dmosopt_tpu/strategy.py:75-99,
+:378``); with ``persist_features`` a feature that cannot be columnized
+fails at its first evaluation. ``surrogate_custom_training`` (an import
+path) and its kwargs pass through to every epoch. The problem-batched
+tenant core (`tenants.py`) opens an epoch with `open_epoch` and puts
+its result in place with `install_epoch_result` (``:417-470``).
 """
 
 from __future__ import annotations
@@ -52,6 +59,7 @@ from dmosopt_tpu_torch.models.refit import (
 )
 from dmosopt_tpu_torch.moasmo import get_duplicates
 from dmosopt_tpu_torch.ops import order_mo
+from dmosopt_tpu_torch.storage import feature_columns
 
 
 def anyclose(x, Y, rtol: float = 1e-4, atol: float = 1e-4) -> bool:
@@ -89,6 +97,9 @@ class DistOptStrategy:
         feasibility_method_name=None,
         feasibility_method_kwargs: Optional[Dict] = None,
         optimize_mean_variance: bool = False,
+        surrogate_custom_training: Optional[str] = None,
+        surrogate_custom_training_kwargs: Optional[Dict] = None,
+        persist_features: bool = False, file_path=None,
         local_random=None, logger=None, device=None,
     ):
         self.__dict__.update(
@@ -104,6 +115,9 @@ class DistOptStrategy:
             num_generations=num_generations,
             population_size=population_size,
             optimize_mean_variance=optimize_mean_variance,
+            surrogate_custom_training=surrogate_custom_training,
+            surrogate_custom_training_kwargs=surrogate_custom_training_kwargs,
+            persist_features=persist_features, file_path=file_path,
         )
         self.surrogate_method_kwargs = surrogate_method_kwargs or {}
         # cross-epoch surrogate reuse: one controller per problem; "cold"
@@ -127,10 +141,10 @@ class DistOptStrategy:
         self.termination = self._build_termination(termination_conditions)
 
         self.completed = []
-        self.x = self.y = self.c = None
+        self.x = self.y = self.f = self.c = None
         if initial is not None:
-            # (epochs, x, y, f, c) restored from the store; no features
-            _epochs, self.x, self.y, _f, self.c = initial
+            # (epochs, x, y, f, c) restored from the store
+            _epochs, self.x, self.y, self.f, self.c = initial
 
         # seed the request queue with the initial design; on resume the
         # design skips as many points as the archive holds and drops the
@@ -155,6 +169,7 @@ class DistOptStrategy:
         self.opt_gen = None
         self.epoch_index = -1
         self.folded_evals = None
+        self._epoch_opened = False
         self.stats = {}
         self.n_quarantined = 0
 
@@ -185,7 +200,7 @@ class DistOptStrategy:
     def get_next_request(self) -> Optional[EvalRequest]:
         return self.reqs.popleft() if self.reqs else None
 
-    def complete_request(self, x, y, epoch=None, c=None, pred=None, time=-1.0):
+    def complete_request(self, x, y, epoch=None, f=None, c=None, pred=None, time=-1.0):
         x, y = np.asarray(x), np.asarray(y)
         if x.shape[0] != self.prob.dim or y.shape[0] != self.prob.n_objectives:
             raise ValueError(f"result shapes {x.shape}, {y.shape} do not fit the problem")
@@ -194,7 +209,18 @@ class DistOptStrategy:
             if pred.shape[0] == self.prob.n_objectives:
                 # a mean-only prediction: zero variances beside it
                 pred = np.concatenate((pred, np.zeros_like(pred)))
-        entry = EvalEntry(epoch, x, y, None, c, pred, time)
+        if f is not None:
+            # the archive keeps features as flat float columns; records
+            # with non-numeric fields pass through raw unless the run
+            # persists, which fails on the first such evaluation
+            try:
+                f = feature_columns(f).reshape(1, -1)
+            except TypeError:
+                if self.persist_features:
+                    raise
+                if np.ndim(f) == 1:
+                    f = np.reshape(f, (1, -1))
+        entry = EvalEntry(epoch, x, y, f, c, pred, time)
         if not np.all(np.isfinite(y.astype(np.float64, copy=False))):
             # a non-finite objective never reaches the archive: one NaN
             # row would poison the standardized GP training targets
@@ -215,6 +241,8 @@ class DistOptStrategy:
         is_duplicate = get_duplicates(self.x, device=self.device)
         self.x = self.x[~is_duplicate]
         self.y = self.y[~is_duplicate]
+        if self.f is not None:
+            self.f = self.f[~is_duplicate]
         if self.c is not None:
             self.c = self.c[~is_duplicate]
 
@@ -232,6 +260,8 @@ class DistOptStrategy:
         self.y = self.y[perm, :]
         if self.c is not None:
             self.c = self.c[perm, :]
+        if self.f is not None:
+            self.f = self.f[perm]
 
     def _update_evals(self):
         """Fold completed evaluations into the archive once the request
@@ -241,6 +271,11 @@ class DistOptStrategy:
         done = self.completed
         x = np.vstack([e.parameters for e in done])
         y = np.vstack([e.objectives for e in done])
+        f = (
+            np.concatenate([e.features for e in done], axis=0)
+            if self.prob.n_features is not None
+            else None
+        )
         c = (
             np.vstack([e.constraints for e in done])
             if self.prob.n_constraints is not None
@@ -258,10 +293,11 @@ class DistOptStrategy:
             )
         self.x = _vstack_or_init(self.x, x)
         self.y = _vstack_or_init(self.y, y)
+        self.f = _vstack_or_init(self.f, f)
         self.c = _vstack_or_init(self.c, c)
         self._remove_duplicate_evals()
         self.completed = []
-        return x, y, pred, None, c
+        return x, y, pred, f, c
 
     # ------------------------------------------------------- epoch driving
 
@@ -279,11 +315,21 @@ class DistOptStrategy:
             merged["distance_metric"] = self.distance_metric
         return self.optimizer_name[idx], merged
 
+    def open_epoch(self):
+        """Fold the evaluations completed since the last epoch (the
+        previous epoch's resample batch) into the archive and keep them
+        in ``folded_evals``. `initialize_epoch` does it unless the batched
+        core already has, to decide eligibility on the folded archive."""
+        self.folded_evals = self._update_evals()
+        self._epoch_opened = True
+
     def initialize_epoch(self, epoch_index: int):
         if self.opt_gen is not None:
             raise RuntimeError("an epoch is already active for this strategy")
         name, okw = self._cycled_optimizer()
-        self.folded_evals = self._update_evals()
+        if not self._epoch_opened:
+            self.open_epoch()
+        self._epoch_opened = False
 
         if epoch_index <= self.epoch_index:
             raise ValueError(f"epoch {epoch_index} does not follow {self.epoch_index}")
@@ -301,6 +347,9 @@ class DistOptStrategy:
             feasibility_method_name=self.feasibility_method_name,
             feasibility_method_kwargs=self.feasibility_method_kwargs,
             surrogate_refit=self.refit_controller,
+            surrogate_custom_training=self.surrogate_custom_training,
+            surrogate_custom_training_kwargs=self.surrogate_custom_training_kwargs,
+            file_path=self.file_path,
             optimize_mean_variance=self.optimize_mean_variance,
             termination=self.termination,
             local_random=self.local_random, logger=self.logger,
@@ -318,6 +367,20 @@ class DistOptStrategy:
             self._reduce_evals()
         for row in x_gen:
             self.append_request(EvalRequest(row, None, self.epoch_index))
+
+    def install_epoch_result(self, epoch_index: int, result: dict):
+        """Put in place an epoch computed outside `initialize_epoch`: the
+        batched tenant core advances a bucket of strategies at once and
+        hands each its surrogate-mode result dict here, which
+        `update_epoch` then completes exactly as a result stashed by
+        `initialize_epoch` (resample requests, stats)."""
+        if self.opt_gen is not None:
+            raise RuntimeError("an epoch is already active for this strategy")
+        if epoch_index <= self.epoch_index:
+            raise ValueError(f"epoch {epoch_index} does not follow {self.epoch_index}")
+        self._epoch_opened = False
+        self.epoch_index = epoch_index
+        self.opt_gen = result
 
     def _complete_from_result(self, res, resample: bool):
         """The epoch generator's result dict as (CompletedEpoch,
@@ -371,17 +434,23 @@ class DistOptStrategy:
     # ------------------------------------------------------------ queries
 
     def get_best_evals(self, feasible: bool = True):
+        """(x, y, features, c) of the archive's non-dominated rows; the
+        features through the problem's constructor."""
         if self.x is None:
-            return None, None, None
-        bestx, besty, _, bestc, _, _ = opt.get_best(
-            self.x, self.y, None, self.c,
+            return None, None, None, None
+        bestx, besty, bestf, bestc, _, _ = opt.get_best(
+            self.x, self.y, self.f, self.c,
             self.prob.dim, self.prob.n_objectives, feasible=feasible,
             device=self.device,
         )
-        return bestx, besty, bestc
+        return bestx, besty, self.prob.feature_constructor(bestf), bestc
 
-    def get_evals(self, return_constraints: bool = False):
+    def get_evals(self, return_features: bool = False, return_constraints: bool = False):
         out = [self.x, self.y]
+        if return_features:
+            out.append(
+                self.prob.feature_constructor(self.f) if self.f is not None else None
+            )
         if return_constraints:
             out.append(self.c)
         return tuple(out)

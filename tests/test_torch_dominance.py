@@ -9,6 +9,7 @@ permutations must be equal on tie-free inputs.
 
 import numpy as np
 import pytest
+import jax
 import jax.numpy as jnp
 import torch
 
@@ -93,7 +94,8 @@ def test_sort_mo_permutation_equals_jax(metrics):
     x = rng.random((70, 4)).astype(np.float32)
     y = rng.random((70, 2)).astype(np.float32)
     jx, jy = jnp.asarray(x), jnp.asarray(y)
-    xs, ys, rank, _, perm = JSort.sort_mo(jx, jy, y_distance_metrics=metrics)
+    sort = jax.jit(lambda a, b: JSort.sort_mo(a, b, y_distance_metrics=metrics))
+    xs, ys, rank, _, perm = sort(jx, jy)
     txs, tys, trank, _, tperm = TSort.sort_mo(
         torch.as_tensor(x), torch.as_tensor(y), y_distance_metrics=metrics
     )
@@ -158,7 +160,8 @@ def test_batched_sort_and_crowding_equal_the_jax_vmap():
     x = rng.random((S, n, 3)).astype(np.float32)
     y = rng.random((S, n, 3)).astype(np.float32)
     mask = rng.random((S, n)) > 0.1
-    want = jax.vmap(lambda a, b: JSort.sort_mo(a, b, need=need))(jnp.asarray(x), jnp.asarray(y))
+    want = jax.jit(jax.vmap(lambda a, b: JSort.sort_mo(a, b, need=need)))(
+        jnp.asarray(x), jnp.asarray(y))
     got = TSort.sort_mo(torch.as_tensor(x), torch.as_tensor(y), need=need)
     for g, w in zip((got[0], got[1], got[2], got[4]), (want[0], want[1], want[2], want[4])):
         np.testing.assert_array_equal(g.numpy(), np.asarray(w))

@@ -12,6 +12,7 @@ tests/test_nsga2_zdt1.py::test_nsga2_converges_on_zdt1.
 
 import numpy as np
 import pytest
+import jax
 import jax.numpy as jnp
 import torch
 
@@ -70,7 +71,7 @@ def test_initialize_and_update_match_jax(options):
         {k: np.asarray(v) for k, v in jstate._asdict().items()}, "cpu"
     )
     x_gen, y_gen = _population(pop, n, d, seed=3)
-    want = jopt.update_strategy(jstate, jnp.asarray(x_gen), jnp.asarray(y_gen))
+    want = jax.jit(jopt.update_strategy)(jstate, jnp.asarray(x_gen), jnp.asarray(y_gen))
     got = topt.update_strategy(tstate, torch.as_tensor(x_gen), torch.as_tensor(y_gen))
     for name in ("population_parm", "population_obj", "rank", "n_active",
                  "last_is_crossover"):

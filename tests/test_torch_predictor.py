@@ -23,6 +23,7 @@ a clone never serves the previous fit's cache.
 
 import numpy as np
 import pytest
+import jax
 import jax.numpy as jnp
 import torch
 
@@ -130,21 +131,24 @@ SHAPES = [(90, 5, 2, 60), (70, 3, 1, 40), (100, 5, 3, 64)]
 def cases():
     """Per shape: the JAX fit, its padded data, queries (37 random and 20
     training rows), the oracle and the JAX package's three regimes."""
+    @jax.jit
+    def regimes(fit, jq, z_idx):
+        """The caches and the three regimes' predictions, one program a
+        shape."""
+        W = JPR.build_whitened_cache(fit)
+        nc = JPR.build_nystrom_cache(fit, z_idx, kernel="matern52", rel_jitter=1e-4)
+        return nc, {"solve": JGP.gp_predict(fit, jq),
+                    "matmul": JPR.gp_predict_matmul(fit, W, jq),
+                    "nystrom": JPR.gp_predict_nystrom(nc, jq)}
+
     out = {}
     for n, dim, d, m in SHAPES:
         fit, Xp, Yp, mask = _jax_fit(n, dim, d)
         rng = np.random.default_rng(3)
         Xq = np.concatenate([rng.uniform(size=(37, dim)).astype(np.float32), Xp[:20]])
-        W = JPR.build_whitened_cache(fit)
-        nc = JPR.build_nystrom_cache(fit, jnp.asarray(_z_idx(n, m), jnp.int32),
-                                     kernel="matern52", rel_jitter=1e-4)
-        jq = jnp.asarray(Xq)
+        nc, jax_pred = regimes(fit, jnp.asarray(Xq), jnp.asarray(_z_idx(n, m), jnp.int32))
         out[(n, dim, d)] = dict(
-            fit=fit, Xq=Xq, m=m, nc=nc,
-            oracle=_oracle(fit, Yp, mask, Xq),
-            jax={"solve": JGP.gp_predict(fit, jq),
-                 "matmul": JPR.gp_predict_matmul(fit, W, jq),
-                 "nystrom": JPR.gp_predict_nystrom(nc, jq)},
+            fit=fit, Xq=Xq, m=m, nc=nc, oracle=_oracle(fit, Yp, mask, Xq), jax=jax_pred,
         )
     return out
 

@@ -121,15 +121,45 @@ def test_run_with_constraints_returns_feasible_points():
 
 
 @pytest.mark.parametrize(
-    "option",
-    [{"telemetry": True}, {"mesh": object()},
-     {"tenant_batching": True}, {"feature_dtypes": [("f", np.float32)]},
-     {"surrogate_custom_training": "no.such.hook"}, {"problem_ids": {0, 1}},
-     {"jax_objective": True}],
+    "option", [{"telemetry": True}, {"mesh": object()}, {"jax_objective": True}],
 )
 def test_unported_driver_options_raise(option):
     with pytest.raises(NotImplementedError):
         dmosopt_tpu_torch.run(_params(**option), device="cpu", verbose=False)
+
+
+def _problems_zdt1(mpp):
+    return {pid: zdt1_obj(pp) for pid, pp in mpp.items()}
+
+
+def _featured_zdt1(pp):
+    x = np.array([pp[f"x{i}"] for i in range(N_DIM)])
+    return zdt1_obj(pp), np.array([x.sum()], dtype=np.float32)
+
+
+@pytest.mark.parametrize(
+    # the options the port took over from the JAX package: each runs a
+    # short run through run() instead of raising
+    "option",
+    [{"tenant_batching": True, "problem_ids": {0, 1}, "obj_fun": _problems_zdt1},
+     {"feature_dtypes": [("f", np.float32)], "obj_fun": _featured_zdt1},
+     {"surrogate_custom_training": "no.such.hook"},
+     {"problem_ids": {0, 1}, "obj_fun": _problems_zdt1}],
+)
+def test_ported_driver_options_run(option):
+    params = _params(opt_id="ported_option", n_epochs=1, num_generations=2, n_initial=2,
+                     population_size=8, **option)
+    if "surrogate_custom_training" in option:
+        # the hook is imported by path when the epoch fits its surrogate
+        with pytest.raises(ModuleNotFoundError):
+            dmosopt_tpu_torch.run(params, device="cpu", verbose=False)
+        return
+    best = dmosopt_tpu_torch.run(params, device="cpu", verbose=False,
+                                 return_features=True)
+    best = best if "problem_ids" in option else {0: best}
+    for prms, res, ftrs in best.values():
+        assert len(prms) == N_DIM and len(res) == 2
+        assert (ftrs is not None) == ("feature_dtypes" in option)
 
 
 @pytest.mark.parametrize(
@@ -476,11 +506,9 @@ def test_run_tnk_with_logreg_returns_feasible_points():
 
 
 def test_run_options_raise_or_are_ignored():
-    """return_features=True and unknown keywords raise; the reference's
-    distwq keywords and compile_cache_dir are accepted and do nothing."""
-    with pytest.raises(NotImplementedError, match="return_features"):
-        dmosopt_tpu_torch.run(_params(), device="cpu", verbose=False,
-                              return_features=True)
+    """Unknown keywords raise; the reference's distwq keywords and
+    compile_cache_dir are accepted and do nothing; return_features=True
+    on a run without features gives None in the features' place."""
     with pytest.raises(TypeError, match="bogus_option"):
         dmosopt_tpu_torch.run(_params(), device="cpu", verbose=False, bogus_option=1)
     best = dmosopt_tpu_torch.run(
@@ -488,9 +516,9 @@ def test_run_options_raise_or_are_ignored():
                 population_size=8,
                 surrogate_method_kwargs={"n_starts": 1, "n_iter": 5, "seed": 0}),
         device="cpu", verbose=False, compile_cache_dir="unused",
-        spawn_workers=True, nprocs_per_worker=4,
+        spawn_workers=True, nprocs_per_worker=4, return_features=True,
     )
-    assert len(best[0]) == N_DIM
+    assert len(best[0]) == N_DIM and best[2] is None
 
 
 def test_archive_queries_need_cuda_unless_the_cpu_is_asked_for(monkeypatch):

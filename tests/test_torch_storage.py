@@ -399,3 +399,59 @@ def test_mean_variance_store_resumes_in_the_other_package(tmp_path, writer):
     assert np.all(resampled[:, 2:] >= 0.0)
     state = jax_storage.init_from_h5(fp, names, "torch_store")
     assert sum(1 for e in state[2][0] if e.prediction.shape == (4,)) == P.shape[0]
+
+
+FEATURES = [("x_sum", "<f8"), ("g", "<f8")]
+
+
+def problems_obj(mpp):
+    """ZDT1 of each problem's parameter dict, shifted by its id, with a
+    structured feature record."""
+    out = {}
+    for pid, pp in mpp.items():
+        x = np.array([pp[f"x{i}"] for i in range(N_DIM)])
+        y = zdt1_obj(pp)
+        g = 1.0 + 9.0 / (N_DIM - 1) * np.sum(x[1:])
+        out[pid] = (y + pid, np.array([(x.sum(), g + pid)], dtype=FEATURES))
+    return out
+
+
+@pytest.mark.parametrize("writer", ["jax", "torch"])
+def test_problems_and_features_store_resumes_in_the_other_package(tmp_path, writer):
+    """A store of three problems with features, written by one package's
+    driver (the initial designs evaluated and saved), resumes in both
+    drivers with the same problems, the same archive per problem and
+    float64-equal feature columns; the port's resumed run then appends
+    to each problem's group, and the JAX package's reader loads it."""
+    fp = str(tmp_path / f"{writer}_problems.h5")
+    params = _params(fp, obj_fun=problems_obj, problem_ids={0, 1, 2},
+                     feature_dtypes=FEATURES, save_eval=50)
+    if writer == "jax":
+        w = jax_driver.dopt_init({**params, "telemetry": False}, initialize_strategy=True)
+    else:
+        w = port_driver.dopt_init({**params, "device": "cpu"}, initialize_strategy=True)
+    w._process_requests()
+    w._flush_writes()
+    w._close_writer()
+    jd = jax_driver.dopt_init({**params, "telemetry": False}, initialize_strategy=True)
+    pd = port_driver.dopt_init({**params, "device": "cpu"}, initialize_strategy=True)
+    assert pd.problem_ids == jd.problem_ids == {0, 1, 2} and pd.has_problem_ids
+    assert [tuple(d) for d in pd.feature_dtypes] == [tuple(d) for d in jd.feature_dtypes]
+    assert pd.start_epoch == jd.start_epoch == 1
+    for pid in (0, 1, 2):
+        js, ps = jd.optimizer_dict[pid], pd.optimizer_dict[pid]
+        assert ps.x.shape == (3 * N_DIM, N_DIM)
+        np.testing.assert_array_equal(ps.x, js.x)
+        np.testing.assert_array_equal(ps.y, js.y)
+        np.testing.assert_array_equal(ps.f, js.f)
+        np.testing.assert_allclose(ps.y[:, 0] - pid, ps.x[:, 0], rtol=1e-12, atol=1e-15)
+        np.testing.assert_allclose(ps.f[:, 0], ps.x.sum(axis=1), rtol=1e-12)
+    best = dmosopt_tpu_torch.run(params, device="cpu", verbose=False, return_features=True)
+    assert sorted(best) == [0, 1, 2]
+    assert all(best[pid][2].dtype.names == ("x_sum", "g") for pid in best)
+    state = jax_storage.init_from_h5(fp, list(params["space"]), "torch_store")
+    assert state[8] == {0, 1, 2} and state[5] is not None
+    for pid in (0, 1, 2):
+        epochs = np.concatenate([e.epoch for e in state[2][pid]])
+        assert epochs.max() == 2 and len(state[2][pid]) > 3 * N_DIM
+        assert all(e.features.shape == (2,) for e in state[2][pid])

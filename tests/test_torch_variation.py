@@ -96,7 +96,7 @@ def test_tournament_selection_matches_jax_with_injected_gumbel(masked):
     rank, metric = _selection_inputs(n, seed=5)
     mask = np.arange(n) % 5 != 0 if masked else None
     key = jax.random.PRNGKey(11)
-    want = np.asarray(JV.tournament_selection(
+    want = np.asarray(jax.jit(JV.tournament_selection, static_argnums=1)(
         key, poolsize, jnp.asarray(rank), jnp.asarray(metric),
         mask=None if mask is None else jnp.asarray(mask),
     ))
