@@ -216,6 +216,20 @@ It imports nothing of JAX nor of the JAX package. Phases, in order:
    epoch, its model serving the fit): the feature records of each
    returned set.
 
+14. telemetry on the card, each run through run() with the counters
+   reset just before it and read just after. (a) The quick start with
+   the default telemetry and a ``torch.profiler`` capture of epoch 1
+   (``profile_dir``, ``profile_epochs=[1]``): the span tree, the epoch
+   and generation counters, a device-clock ``device_busy_fraction`` in
+   (0, 1], ``gp_fit`` and ``ea_scan`` rows with device time, and
+   ``launch_offspring``'s kernel once a generation among the captured
+   kernel events; printed with the overlap ratio and every row's device
+   time. (b) The quick start with ``telemetry=False`` and with the
+   default, interleaved, best of 2 each: both walls, printed without a
+   gate. (c) ``bench.py`` Config 11 at 16 problems with a capture of
+   epoch 1: the bucket's rows and each tenant's device seconds, whose
+   sum must be within 5% of the bucket rows'.
+
 ``python3 chip_smoke.py --phases 2,9,10`` runs the named phases only
 (phase 1 always), without the kernels and result lines.
 
@@ -618,18 +632,19 @@ def direct_ea(torch, V):
     assert on[:, 0].max() - on[:, 0].min() > 0.5
 
 
-def quick_start(torch, V):
-    """Phase 4: the README quick start through run(); returns the
-    kernel launch counts of this run."""
-    import numpy as np
+# the README quick start: dim, pop, generations, initial points per
+# parameter, epochs
+QUICK_START = (30, 200, 100, 3, 3)
 
-    import dmosopt_tpu_torch
-    from dmosopt_tpu_torch.benchmarks.zdt import distance_to_front, zdt1, zdt1_pareto
-    from dmosopt_tpu_torch.driver import dopt_dict
 
-    dim, pop, gens, n_initial, n_epochs = 30, 200, 100, 3, 3
+def quick_start_params(opt_id, **over):
+    """The README quick start's run() parameters (ZDT1 as a batched torch
+    objective, NSGA-II, `gpr` defaults, seed 0)."""
+    from dmosopt_tpu_torch.benchmarks.zdt import zdt1
+
+    dim, pop, gens, n_initial, n_epochs = QUICK_START
     params = {
-        "opt_id": "zdt1_quick_start",
+        "opt_id": opt_id,
         "obj_fun": zdt1,
         "torch_objective": True,
         "space": {f"x{i}": [0.0, 1.0] for i in range(dim)},
@@ -643,6 +658,21 @@ def quick_start(torch, V):
         "surrogate_method_name": "gpr",
         "random_seed": 0,
     }
+    params.update(over)
+    return params
+
+
+def quick_start(torch, V):
+    """Phase 4: the README quick start through run(); returns the
+    kernel launch counts of this run."""
+    import numpy as np
+
+    import dmosopt_tpu_torch
+    from dmosopt_tpu_torch.benchmarks.zdt import distance_to_front, zdt1_pareto
+    from dmosopt_tpu_torch.driver import dopt_dict
+
+    dim, pop, gens, n_initial, n_epochs = QUICK_START
+    params = quick_start_params("zdt1_quick_start")
     V.reset_kernel_launches()
     t0 = time.perf_counter()
     best = dmosopt_tpu_torch.run(params, verbose=False)
@@ -2446,6 +2476,156 @@ def tenant_core(torch, V, smi):
     return out
 
 
+# phase 14: the span tree every epoch of a surrogate run opens (the
+# epoch's children; the background writer's h5_write spans are roots of
+# their own thread, and this store-less run writes none)
+EPOCH_CHILDREN = {"eval_dispatch", "eval_drain", "gp_fit", "ea_scan", "resample"}
+# the device-clock rows phase 14 (a) gates on, and the name of
+# launch_offspring's kernel in a captured trace
+TRACED_ROWS = ("gp_fit", "ea_scan")
+OFFSPRING_KERNEL_NAME = "offspring_kernel"
+# tenant device seconds must sum to the bucket rows' within this share
+TENANT_SECONDS_RTOL = 0.05
+
+
+def _span_tree(tel):
+    """{(span name, parent name or None)}: the captured run's span tree."""
+    spans = tel.tracer.spans()
+    by_id = {sp.span_id: sp.name for sp in spans}
+    return {(sp.name, by_id.get(sp.parent_id)) for sp in spans}
+
+
+def _captured_rows(tel, label):
+    """The ledger's program rows, printed with their device seconds;
+    returns {(program, bucket): row}."""
+    rows = {(r.program, r.bucket): r for r in tel.ledger.program_rows()}
+    for (prog, bucket), r in sorted(rows.items(), key=lambda kv: (kv[0][0], kv[0][1] or "")):
+        print(f"  {label} row {prog}{'' if bucket is None else f' [{bucket}]'}: "
+              f"device {r.device_time_s * 1e3:.3f} ms of host {r.host_time_s * 1e3:.3f} ms, "
+              f"{r.n_joined}/{r.n_spans} spans joined")
+    return rows
+
+
+def telemetry_quick_start(torch, V, smi, profile_dir):
+    """Phase 14 (a): the quick start with the default telemetry and a
+    capture of epoch 1; returns the kernel launch counts of the run."""
+    import dmosopt_tpu_torch
+    from dmosopt_tpu_torch.driver import dopt_dict
+
+    dim, pop, gens, n_initial, n_epochs = QUICK_START
+    params = quick_start_params(
+        "telemetry_quick_start",
+        telemetry={"profile_dir": profile_dir, "profile_epochs": [1]},
+    )
+    torch.cuda.synchronize()
+    V.reset_kernel_launches()
+    t0 = time.perf_counter()
+    dmosopt_tpu_torch.run(params, verbose=False)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(V.KERNEL_LAUNCHES)
+    tel = dopt_dict["telemetry_quick_start"].telemetry
+    assert launches == {"offspring": n_epochs * gens, "sbx": 0, "mutation": 0}, launches
+
+    tree = _span_tree(tel)
+    assert {(n, "epoch") for n in EPOCH_CHILDREN} <= tree, tree
+    assert ("epoch", None) in tree, tree
+    counters = tel.registry.snapshot()["counters"]
+    assert counters["ea_generations_total"][""] == n_epochs * gens, counters
+    assert counters["epochs_total"][""] == n_epochs, counters
+
+    cap = tel.ledger.last_capture
+    assert tel.ledger.captures == 1, tel.ledger.captures
+    busy, overlap = cap.device_busy_fraction, cap.device_overlap_ratio
+    assert busy is not None and 0.0 < busy <= 1.0, busy
+    rows = _captured_rows(tel, "quick start epoch 1")
+    for name in TRACED_ROWS:
+        assert rows[(name, None)].device_time_s > 0.0, (name, rows[(name, None)])
+    kernels = {k: v for k, v in cap.device_events.items() if OFFSPRING_KERNEL_NAME in k}
+    assert kernels, sorted(cap.device_events)[:20]
+    n_off = sum(int(v[0]) for v in kernels.values())
+    # epoch 1 ran `gens` generations, one fused launch each
+    assert n_off == gens, (n_off, kernels)
+    top = sorted(cap.device_events.items(), key=lambda kv: -kv[1][1])[:5]
+    print(f"[{smi}] telemetry (a) quick start {wall:.3f} s with a capture of epoch 1: "
+          f"device_busy_fraction {busy:.4f}, device_overlap_ratio {overlap:.4f}, "
+          f"window {cap.window_s:.3f} s, device busy {cap.device_busy_s:.4f} s, "
+          f"{cap.n_device_lanes} device lane(s), {cap.n_joined}/{cap.n_spans} spans joined; "
+          f"{n_off} {OFFSPRING_KERNEL_NAME} events, "
+          f"{sum(v[1] for v in kernels.values()) * 1e3:.3f} ms")
+    print("  top device events: " + "; ".join(
+        f"{name[:60]} x{int(c)} {t * 1e3:.3f} ms" for name, (c, t) in top))
+    return launches
+
+
+def telemetry_overhead(torch, V, smi):
+    """Phase 14 (b): the quick start with telemetry=False and with the
+    default, interleaved (off, on, on, off), best of 2 each; printed."""
+    import dmosopt_tpu_torch
+
+    walls = {"off": [], "on": []}
+    for i, mode in enumerate(("off", "on", "on", "off")):
+        over = {"telemetry": False} if mode == "off" else {}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dmosopt_tpu_torch.run(quick_start_params(f"telemetry_{mode}_{i}", **over),
+                              verbose=False)
+        torch.cuda.synchronize()
+        walls[mode].append(time.perf_counter() - t0)
+    off, on = min(walls["off"]), min(walls["on"])
+    print(f"[{smi}] telemetry (b) quick start wall, best of 2: telemetry=False "
+          f"{off:.3f} s ({walls['off'][0]:.3f}, {walls['off'][1]:.3f}), default "
+          f"{on:.3f} s ({walls['on'][0]:.3f}, {walls['on'][1]:.3f}); "
+          f"on/off {on / off:.4f}")
+    return off, on
+
+
+def telemetry_bucket(torch, V, smi, profile_dir):
+    """Phase 14 (c): bench.py Config 11 at 16 problems with a capture of
+    epoch 1: the bucket rows and each tenant's device seconds, which
+    must sum to the bucket rows' within TENANT_SECONDS_RTOL."""
+    from dmosopt_tpu_torch.tenants import bucket_label
+
+    T = 16
+    params = config11_params(
+        "telemetry_config11", T,
+        telemetry={"profile_dir": profile_dir, "profile_epochs": [1]},
+    )
+    wall, counts, dopt, best = _tenant_run(torch, V, params)
+    assert counts == {"offspring": 2 * 8, "sbx": 0, "mutation": 0}, counts
+    _check_tenants(dopt, best, "telemetry config 11")
+    tel = dopt.telemetry
+    label = bucket_label(4, 2, 16)
+    rows = _captured_rows(tel, f"config 11 T={T} epoch 1")
+    bucket_rows = [rows[(name, label)] for name in TRACED_ROWS]
+    bucket_s = sum(r.device_time_s for r in bucket_rows)
+    tenant = tel.ledger.tenant_device_seconds()
+    tenant_s = sum(v for phases in tenant.values() for v in phases.values())
+    assert len(tenant) == T, sorted(tenant)
+    assert bucket_s > 0.0 and abs(tenant_s - bucket_s) <= TENANT_SECONDS_RTOL * bucket_s, (
+        tenant_s, bucket_s)
+    cap = tel.ledger.last_capture
+    print(f"[{smi}] telemetry (c) config 11 T={T}: wall {wall:.3f} s, "
+          f"device_busy_fraction {cap.device_busy_fraction:.4f}, bucket rows' device "
+          f"{bucket_s * 1e3:.3f} ms, tenants' device seconds sum {tenant_s * 1e3:.3f} ms "
+          f"({tenant_s / bucket_s:.4f} of it)")
+    for pid in sorted(tenant, key=int)[:3]:
+        print(f"  tenant {pid}: " + ", ".join(
+            f"{ph} {v * 1e3:.4f} ms" for ph, v in sorted(tenant[pid].items())))
+    return counts
+
+
+def telemetry_phase(torch, V, smi):
+    """Phase 14: telemetry on the card. Returns each run's launches."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as profile_dir:
+        quick = telemetry_quick_start(torch, V, smi, profile_dir)
+        telemetry_overhead(torch, V, smi)
+        bucket = telemetry_bucket(torch, V, smi, profile_dir)
+    return {"quick_start": quick, "config11_T16": bucket}
+
+
 def _requested_phases(argv):
     """The phases of ``--phases 2,9,10``, or None for the whole script."""
     if not argv:
@@ -2480,7 +2660,7 @@ def main() -> int:
         runs = {2: check_kernels, 3: direct_ea, 4: quick_start, 5: file_backed,
                 6: many_objective, 7: lorenz_run, 8: config5_loop,
                 9: constrained_run, 10: sa_run, 11: reusing_surrogate,
-                12: sparse_surrogates, 13: tenant_core}
+                12: sparse_surrogates, 13: tenant_core, 14: telemetry_phase}
         for p in sorted(phases):
             t0 = time.perf_counter()
             fn = runs[p]
@@ -2511,9 +2691,11 @@ def main() -> int:
     t6 = time.perf_counter()
     launches_tenants = tenant_core(torch, V, smi)
     t7 = time.perf_counter()
+    launches_telemetry = telemetry_phase(torch, V, smi)
+    t8 = time.perf_counter()
     print(f"[{smi}] phase 7 {t1 - t0:.1f} s, phase 8 {t2 - t1:.1f} s, phase 9 "
           f"{t3 - t2:.1f} s, phase 10 {t4 - t3:.1f} s, phase 11 {t5 - t4:.1f} s, "
-          f"phase 12 {t6 - t5:.1f} s, phase 13 {t7 - t6:.1f} s")
+          f"phase 12 {t6 - t5:.1f} s, phase 13 {t7 - t6:.1f} s, phase 14 {t8 - t7:.1f} s")
     assert "jax" not in sys.modules and "dmosopt_tpu" not in sys.modules
 
     kernels = []
@@ -2535,6 +2717,7 @@ def main() -> int:
             "launches_refit_runs": {m: n[name] for m, n in launches_refit.items()},
             "launches_sparse_runs": {m: n[name] for m, n in launches_sparse.items()},
             "launches_tenant_runs": {m: n[name] for m, n in launches_tenants.items()},
+            "launches_telemetry_runs": {m: n[name] for m, n in launches_telemetry.items()},
             "max_abs_err": max(r["max_abs_err"] for r in rep["rows"].values()),
             "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
             "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],

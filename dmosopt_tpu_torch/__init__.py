@@ -6,8 +6,10 @@ against an exact-GP surrogate, optionally stopped by the adaptive
 termination criteria — on a CUDA device, with the variation kernels as
 Triton kernels (see `dmosopt_tpu_torch.ops.variation`), host objectives
 on a thread pool under the JAX package's pipeline modes, and the HDF5
-store it saves to and resumes from (`dmosopt_tpu_torch.storage`). It
-imports neither jax nor dmosopt_tpu.
+store it saves to and resumes from (`dmosopt_tpu_torch.storage`), with
+the JAX package's telemetry on by default (`dmosopt_tpu_torch.telemetry`:
+metrics, events, spans, health rules, and a device ledger read from
+``torch.profiler`` captures). It imports neither jax nor dmosopt_tpu.
 """
 
 __version__ = "0.1.0"

@@ -1,7 +1,7 @@
 """Top-level driver: `run()`, `dopt_init` and `DistOptimizer`.
 
-Port of ``dmosopt_tpu/driver.py`` (reference dmosopt/dmosopt.py:546-2571)
-for one problem without telemetry: the epoch loop, the HDF5 store (save
+Port of ``dmosopt_tpu/driver.py`` (reference dmosopt/dmosopt.py:546-2571):
+the epoch loop, the HDF5 store (save
 every ``save_eval`` evaluations, the surrogate's evaluations, optimizer
 parameters and stats per epoch) and resuming from it, and the three
 pipeline modes (``serial``, ``overlap_io``, the default, and
@@ -44,13 +44,27 @@ shapes and fit configuration) advance through one batched GP fit and
 one generation loop over stacked NSGA-II states, one offspring launch
 a generation for the whole bucket (`tenants.initialize_epochs_batched`);
 buckets smaller than ``min_tenant_bucket`` take the sequential path.
-The driver options of the JAX package that this port does not carry
-yet raise `NotImplementedError` instead of being ignored:
-``jax_objective``, meshes and telemetry.
+
+Telemetry is on by default, as in the JAX package: ``telemetry`` None
+or True builds a live `telemetry.Telemetry` and a `HealthEngine`, False
+holds none (the run makes no telemetry call), a dict is `Telemetry`
+keyword arguments and an instance passes through (`run()` closes only
+one it built). Each epoch runs in an ``epoch`` span beside the
+evaluation spans (``eval_dispatch``, ``eval_drain``) and the store's
+(``h5_write``), refreshes the device memory gauges, and with
+``profile_dir`` and ``profile_epochs`` runs under a ``torch.profiler``
+capture joined into the device ledger; at its end the health rules are
+evaluated and, with ``save``, the epoch's summary, spans and alert
+transitions go into the store's ``telemetry``, ``telemetry_spans`` and
+``telemetry_alerts`` groups in the JAX package's schema. The driver
+options of the JAX package that this port does not carry yet raise
+`NotImplementedError` instead of being ignored: ``jax_objective``,
+meshes and ``stats_per_problem`` other than "auto".
 """
 
 from __future__ import annotations
 
+import contextlib
 import itertools
 import logging
 import os
@@ -77,9 +91,19 @@ from dmosopt_tpu_torch.parallel.evaluator import (
     HostFunEvaluator,
     TorchBatchEvaluator,
 )
+from dmosopt_tpu_torch.models.predictor import set_predictor_telemetry
+from dmosopt_tpu_torch.ops.dominance import set_rank_telemetry
 from dmosopt_tpu_torch.parallel.pipeline import BackgroundWriter, PipelineConfig
 from dmosopt_tpu_torch.strategy import DistOptStrategy
+from dmosopt_tpu_torch.telemetry import (
+    HealthEngine,
+    Telemetry,
+    create_telemetry,
+    record_device_memory,
+    span_scope,
+)
 from dmosopt_tpu_torch.utils.device import resolve_device
+from dmosopt_tpu_torch.utils.profiling import eval_time_stats
 from dmosopt_tpu_torch.utils.prng import as_generator
 
 logger = logging.getLogger(__name__)
@@ -171,8 +195,9 @@ class _InflightBatch:
 
 
 # driver options of the JAX package that are not ported, with the value
-# that means "not used"
-_UNPORTED_DEFAULTS = {"jax_objective": False, "mesh": None}
+# that means "not used" (``stats_per_problem`` True/False overrides the
+# per-problem stats guard the port applies as "auto")
+_UNPORTED_DEFAULTS = {"jax_objective": False, "mesh": None, "stats_per_problem": "auto"}
 # keyword arguments of the reference's distwq `run()` that the JAX
 # package's `run()` accepts and ignores (dmosopt_tpu/driver.py:1600-1602)
 _LEGACY_RUN_KWARGS = ("spawn_workers", "nprocs_per_worker")
@@ -257,13 +282,17 @@ class DistOptimizer:
           the rows it returns are evaluated, until it returns None.
         device: where the surrogate, the inner EA and a torch objective
           run; None means CUDA (and raises without one).
+        telemetry: None/True for the on-by-default metrics, event log,
+          spans and health engine; False for none at all (no telemetry
+          call); a dict of `telemetry.Telemetry` keyword arguments
+          (``ring_size``, ``jsonl_path``, ``profile_dir``,
+          ``profile_epochs``, ...); or a `Telemetry`, which the caller
+          keeps and closes.
         """
         bad = sorted(
             k for k, default in _UNPORTED_DEFAULTS.items()
             if k in kwargs and not _is_default(kwargs[k], default)
         )
-        if telemetry not in (None, False):
-            bad.append("telemetry")
         if bad:
             raise NotImplementedError(
                 f"DistOptimizer options not ported to dmosopt_tpu_torch: {bad}"
@@ -322,6 +351,14 @@ class DistOptimizer:
         self.save_optimizer_params_ = save_optimizer_params
         self._writer = None  # lazy BackgroundWriter (overlap modes only)
         self._inflight = []  # _InflightBatch stragglers awaiting reconcile
+        self._round_times = []  # per-round objective times of a drain
+        self.telemetry = create_telemetry(telemetry)
+        # a caller's instance may serve several runs: run() closes only
+        # one built here
+        self._owns_telemetry = not isinstance(telemetry, Telemetry)
+        # health rules at every epoch boundary, only with live telemetry
+        self.health = HealthEngine(telemetry=self.telemetry) if self.telemetry else None
+        self.save_count = 0
         self.start_time = time.time()
         self.logger = logging.getLogger(opt_id)
         if self.verbose:
@@ -410,6 +447,12 @@ class DistOptimizer:
             if torch_objective
             else HostFunEvaluator(self.eval_fun, n_workers=n_eval_workers)
         )
+        if self.telemetry is not None:
+            # a caller's evaluator may not take the attribute
+            try:
+                self.evaluator.telemetry = self.telemetry
+            except AttributeError:
+                pass
 
         if self.save and not resuming:
             storage.init_h5(
@@ -602,7 +645,10 @@ class DistOptimizer:
                 optimize_mean_variance=self.optimize_mean_variance,
                 persist_features=self.persist_features, file_path=self.file_path,
                 local_random=self.local_random, logger=self.logger,
-                device=self.device,
+                device=self.device, telemetry=self.telemetry,
+                # the xinit phase is tagged with the run's first epoch, so a
+                # resumed run's summary keeps it
+                xinit_epoch=self.start_epoch,
             )
             self.storage_dict[problem_id] = []
         if any(init is not None for init in initials.values()):
@@ -687,10 +733,11 @@ class DistOptimizer:
         tensor or live driver state; the writer runs closures in
         submission order, so the file sees the serial loop's writes."""
         if not self.pipeline.overlaps_io:
-            self._timed_write(fn, *args, **kwargs)
+            with span_scope(self.telemetry, "h5_write"):
+                self._timed_write(fn, *args, **kwargs)
             return
         if self._writer is None:
-            self._writer = BackgroundWriter()
+            self._writer = BackgroundWriter(telemetry=self.telemetry)
         self._writer.submit(self._timed_write, fn, *args, **kwargs)
 
     def _flush_writes(self):
@@ -746,6 +793,9 @@ class DistOptimizer:
                 self.file_path, self.logger,
                 surrogate_mean_variance=self.optimize_mean_variance,
             )
+            self.save_count += 1
+            if self.telemetry:
+                self.telemetry.inc("h5_saves_total")
 
     def save_surrogate_evals(self, problem_id, epoch, gen_index, x_sm, y_sm):
         if x_sm.shape[0] > 0:
@@ -781,6 +831,30 @@ class DistOptimizer:
             self.opt_id, problem_id, epoch, self.file_path, self.logger,
             self.get_stats(),
         )
+
+    def save_telemetry(self, epoch):
+        """Store the epoch's telemetry summary, the spans closed since the
+        previous epoch's store and the epoch's health-alert transitions
+        (``dmosopt_tpu/driver.py:961-990``); a writer span that closes
+        after the drain lands with the next epoch."""
+        if self.telemetry is None or not self.save:
+            return
+        self._submit_write(
+            storage.save_telemetry_to_h5, self.opt_id, epoch,
+            self.telemetry.epoch_summary(epoch), self.file_path, self.logger,
+        )
+        spans = self.telemetry.tracer.drain() if self.telemetry.tracer else []
+        if spans:
+            self._submit_write(
+                storage.save_spans_to_h5, self.opt_id, epoch,
+                [s.to_dict() for s in spans], self.file_path, self.logger,
+            )
+        alerts = self.health.transitions(epoch=epoch) if self.health else []
+        if alerts:
+            self._submit_write(
+                storage.save_alerts_to_h5, self.opt_id, epoch, alerts,
+                self.file_path, self.logger,
+            )
 
     # ---------------------------------------------------------- epoch loop
 
@@ -820,6 +894,7 @@ class DistOptimizer:
                 else self.reduce_fun(res, *self.reduce_fun_args)
             )
         t = res.pop("time", -1.0)
+        self._round_times.append(t)
         for problem_id, rres in res.items():
             eval_req = round_reqs[problem_id]
             # (y, f, c), (y, f), (y, c) or y, by what the problem declares
@@ -896,7 +971,18 @@ class DistOptimizer:
         if t_end is None:
             t_end = time.perf_counter()
         wall = t_end - st.handle.t_submit
-        self.pipeline_stats["eval_overlap_s"] += max(wall - st.blocked, 0.0)
+        overlap = max(wall - st.blocked, 0.0)
+        self.pipeline_stats["eval_overlap_s"] += overlap
+        tel = self.telemetry
+        if tel:
+            tel.observe("eval_wait_seconds", st.blocked)
+            tel.observe("eval_overlap_seconds", overlap)
+            if wall > 0:
+                tel.gauge("pipeline_overlap_ratio", overlap / wall)
+            tel.event(
+                "pipeline", mode=self.pipeline.mode, n_rounds=st.total,
+                wait_s=st.blocked, overlap_s=overlap,
+            )
 
     def _abandon_inflight(self):
         """Soft-stop teardown: fold every result that has already landed
@@ -931,15 +1017,25 @@ class DistOptimizer:
         they stream back, in submission order. With ``allow_quorum`` in
         speculative mode the drain returns once the quorum fraction of
         rounds has folded; the stragglers stay in flight behind the
-        surrogate fit and are reconciled at the start of the next drain."""
+        surrogate fit and are reconciled at the start of the next drain.
+
+        With telemetry, the reconcile and each batch's wait run in
+        ``eval_drain`` spans, an asynchronous submission in an
+        ``eval_dispatch`` span, and a drain that evaluated anything emits
+        an ``eval`` phase with the rounds' time statistics."""
+        tel = self.telemetry
         t_drain0 = time.perf_counter()
+        evals_before = self.eval_count
+        self._round_times = []
         still_inflight = []
-        for st in self._inflight:
-            self._advance_inflight(st, st.total)
-            if st.next_fold < st.total:
-                still_inflight.append(st)  # time limit: teardown salvages it
-            else:
-                self._finish_inflight(st)
+        if self._inflight:
+            with span_scope(tel, "eval_drain", stage="reconcile"):
+                for st in self._inflight:
+                    self._advance_inflight(st, st.total)
+                    if st.next_fold < st.total:
+                        still_inflight.append(st)  # time limit: teardown salvages it
+                    else:
+                        self._finish_inflight(st)
         self._inflight = still_inflight
 
         while self._has_requests() and not self._time_exceeded():
@@ -948,28 +1044,34 @@ class DistOptimizer:
                 break
             if self._use_async():
                 cfg = self.pipeline
-                handle = self.evaluator.submit_batch(
-                    task_args, timeout=cfg.eval_timeout, retries=cfg.eval_retries,
-                    n_chunks=cfg.torch_eval_chunks,
-                )
+                with span_scope(tel, "eval_dispatch", n_rounds=len(task_args)):
+                    handle = self.evaluator.submit_batch(
+                        task_args, timeout=cfg.eval_timeout, retries=cfg.eval_retries,
+                        n_chunks=cfg.torch_eval_chunks,
+                    )
                 st = _InflightBatch(handle, task_reqs)
                 quorum = st.total
                 if allow_quorum and cfg.speculative and self.epoch_count > 0:
                     # never speculate on the initial design: the first
                     # surrogate fit sees all of it, as in serial mode
                     quorum = max(1, int(np.ceil(cfg.quorum_fraction * st.total)))
-                self._advance_inflight(st, quorum)
+                with span_scope(tel, "eval_drain", n_rounds=st.total):
+                    self._advance_inflight(st, quorum)
                 if st.next_fold < st.total:
                     self._inflight.append(st)
                     if st.next_fold >= quorum:
                         self.pipeline_stats["quorum_returns"] += 1
                         self.pipeline_stats["stragglers"] += st.total - st.next_fold
+                        if tel:
+                            tel.inc("eval_quorum_returns_total")
+                            tel.inc("eval_stragglers_total", st.total - st.next_fold)
                 else:
                     self._finish_inflight(st)
             else:
-                results = self.evaluator.evaluate_batch(task_args)
-                for res, round_reqs in zip(results, task_reqs):
-                    self._fold_round(res, round_reqs)
+                with span_scope(tel, "eval_drain", n_rounds=len(task_args)):
+                    results = self.evaluator.evaluate_batch(task_args)
+                    for res, round_reqs in zip(results, task_reqs):
+                        self._fold_round(res, round_reqs)
 
             if self.save and (self.eval_count - self.saved_eval_count) >= self.save_eval:
                 self.save_evals()
@@ -980,7 +1082,16 @@ class DistOptimizer:
         if self.save and self.saved_eval_count < self.eval_count:
             self.save_evals()
             self.saved_eval_count = self.eval_count
-        self.pipeline_stats["eval_wait_s"] += time.perf_counter() - t_drain0
+        dt = time.perf_counter() - t_drain0
+        self.pipeline_stats["eval_wait_s"] += dt
+        if tel and self.eval_count > evals_before:
+            n_new = self.eval_count - evals_before
+            tel.inc("evals_total", n_new)
+            tel.observe("phase_duration_seconds", dt, phase="eval")
+            tel.event(
+                "phase", phase="eval", duration_s=dt, n_evals=n_new,
+                **eval_time_stats(self._round_times),
+            )
         return self.eval_count, self.saved_eval_count
 
     def _drain_dynamic_initial_samples(self, distopt):
@@ -1028,12 +1139,75 @@ class DistOptimizer:
         so a resumed run continues the stored labels. With
         ``tenant_batching`` and several problems the epochs open through
         `tenants.initialize_epochs_batched`; ``epoch_stats`` then records
-        each problem's route."""
+        each problem's route.
+
+        With telemetry the epoch runs in an ``epoch`` span (closed after
+        the epoch's device synchronize), the device memory gauges are
+        refreshed, an epoch that ``profile_epochs`` names runs under a
+        ``torch.profiler`` capture, and at its end come the ``epoch``
+        event, the health rules and, with ``save``, the telemetry store
+        (``dmosopt_tpu/driver.py:1423-1515``)."""
         epoch = self.start_epoch + self.epoch_count
         advance_epoch = (self.epoch_count + 1) < self.n_epochs
         t0 = time.perf_counter()
         wait0 = self.pipeline_stats["eval_wait_s"]
         launches0 = dict(KERNEL_LAUNCHES)
+        tel = self.telemetry
+        trace_ctx = contextlib.nullcontext()
+        if tel:
+            tel.set_epoch(epoch)
+            record_device_memory(tel, self.device)
+            if tel.should_trace(epoch):
+                trace_ctx = tel.device_capture(epoch, device=self.device)
+        strategies = {pid: self.optimizer_dict[pid] for pid in sorted(self.problem_ids)}
+        with trace_ctx, span_scope(tel, "epoch", epoch=epoch):
+            routing, accuracy = self._run_epoch_body(
+                epoch, strategies, advance_epoch, completed_epoch
+            )
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+
+        def problem_stats(pid):
+            acc = accuracy.get(pid)
+            return {**strategies[pid].stats,
+                    **({} if acc is None else {"surrogate_accuracy": acc})}
+
+        entry = {
+            "epoch": epoch, "epoch_s": time.perf_counter() - t0,
+            "eval_wait_s": self.pipeline_stats["eval_wait_s"] - wait0,
+            "kernel_launches": {
+                k: n - launches0.get(k, 0) for k, n in KERNEL_LAUNCHES.items()
+            },
+        }
+        if self.has_problem_ids:
+            entry["routing"] = routing
+            entry["problems"] = {pid: problem_stats(pid) for pid in strategies}
+        else:
+            entry.update(problem_stats(0))
+        self.epoch_stats.append(entry)
+        if self.save:
+            for pid in sorted(self.problem_ids):
+                self.save_stats(pid, epoch)
+                self.save_refit_state(pid)
+        if tel:
+            tel.inc("epochs_total")
+            tel.event(
+                "epoch", duration_s=time.perf_counter() - t0,
+                eval_count=self.eval_count, save_count=self.save_count,
+            )
+            # the driver has no introspection source: the rules read the
+            # metrics snapshot alone
+            self.health.evaluate(tel.registry.snapshot(), epoch=epoch, step=epoch)
+            self.save_telemetry(epoch)
+        # every write queued this epoch is in the file before the epoch
+        # counts as done
+        self._flush_writes()
+        self.epoch_count += 1
+        return self.epoch_count
+
+    def _run_epoch_body(self, epoch, strategies, advance_epoch, completed_epoch):
+        """The epoch's evaluation drains and every problem's epoch state
+        machine; returns (routing, surrogate accuracy by problem)."""
         self.stats["init_sampling_start"] = time.time()
         # the epoch-opening drain evaluates the previous epoch's resample
         # batch: the one place speculative mode may return at quorum
@@ -1041,13 +1215,12 @@ class DistOptimizer:
         if self.dynamic_initial_sampling is not None and self.epoch_count == 0:
             for pid in sorted(self.problem_ids):
                 self._drain_dynamic_initial_samples(self.optimizer_dict[pid])
-        strategies = {pid: self.optimizer_dict[pid] for pid in sorted(self.problem_ids)}
         if self.tenant_batching and len(strategies) > 1:
             from dmosopt_tpu_torch.tenants import initialize_epochs_batched
 
             routing = initialize_epochs_batched(
                 strategies, epoch, min_bucket=self.min_tenant_bucket,
-                logger=self.logger,
+                telemetry=self.telemetry, logger=self.logger,
             )
         else:
             for strat in strategies.values():
@@ -1074,36 +1247,7 @@ class DistOptimizer:
                 if state == StrategyState.CompletedEpoch:
                     pending.discard(pid)
                     self._finish_problem_epoch(pid, epoch, advance_epoch, res)
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-
-        def problem_stats(pid):
-            acc = accuracy.get(pid)
-            return {**strategies[pid].stats,
-                    **({} if acc is None else {"surrogate_accuracy": acc})}
-
-        entry = {
-            "epoch": epoch, "epoch_s": time.perf_counter() - t0,
-            "eval_wait_s": self.pipeline_stats["eval_wait_s"] - wait0,
-            "kernel_launches": {
-                k: n - launches0.get(k, 0) for k, n in KERNEL_LAUNCHES.items()
-            },
-        }
-        if self.has_problem_ids:
-            entry["routing"] = routing
-            entry["problems"] = {pid: problem_stats(pid) for pid in strategies}
-        else:
-            entry.update(problem_stats(0))
-        self.epoch_stats.append(entry)
-        if self.save:
-            for pid in sorted(self.problem_ids):
-                self.save_stats(pid, epoch)
-                self.save_refit_state(pid)
-        # every write queued this epoch is in the file before the epoch
-        # counts as done
-        self._flush_writes()
-        self.epoch_count += 1
-        return self.epoch_count
+        return routing, accuracy
 
     def _log_surrogate_accuracy(self, problem_id, fit_epoch, completed_evals):
         """Per-objective mean absolute error of the predictions that
@@ -1200,7 +1344,9 @@ def run(
     ``compile_cache_dir`` is accepted and does nothing: the JAX package
     keeps XLA's compiled programs there, and the port compiles no
     programs (its Triton kernels cache themselves under
-    ``dmosopt_tpu_torch/_build``). ``return_features=True`` adds each
+    ``dmosopt_tpu_torch/_build``), so no ``compile_cache_*`` gauges are
+    set. The rank's and the predictor's telemetry hooks are attached to
+    the run's telemetry for the run and detached after it. ``return_features=True`` adds each
     best set's feature records. The reference's distwq keyword arguments
     (``_LEGACY_RUN_KWARGS``) are ignored, as the JAX package ignores
     them; any other keyword raises `TypeError`. An evaluator the caller
@@ -1214,6 +1360,10 @@ def run(
     if device is not None:
         dopt_params["device"] = device
     dopt = dopt_init(dopt_params, verbose=verbose, initialize_strategy=True)
+    # the rank's and the predictor's process-wide hooks record into this
+    # run's telemetry for its duration only (None: no calls)
+    set_rank_telemetry(dopt.telemetry)
+    set_predictor_telemetry(dopt.telemetry)
     dopt.logger.info(f"Optimizing for {dopt.n_epochs} epochs...")
     body_ok = False
     try:
@@ -1223,6 +1373,7 @@ def run(
             while dopt.epoch_count < dopt.n_epochs and not dopt._time_exceeded():
                 dopt.run_epoch()
         dopt.print_best()
+        record_device_memory(dopt.telemetry, dopt.device)
         body_ok = True
     finally:
         # salvage finished in-flight results, drain the evaluator (its
@@ -1244,6 +1395,12 @@ def run(
             if body_ok:
                 raise
             dopt.logger.exception("background writer close failed")
+        finally:
+            set_rank_telemetry(None)
+            set_predictor_telemetry(None)
+            # a caller's Telemetry may serve later runs: close only ours
+            if dopt.telemetry is not None and dopt._owns_telemetry:
+                dopt.telemetry.close()
     return dopt.get_best(
         feasible=feasible, return_features=return_features,
         return_constraints=return_constraints,

@@ -25,12 +25,17 @@ surrogate's predictor inside the timed train phase, and past
 the surrogate's mean and variance, 2·d columns. A
 ``surrogate_custom_training`` hook (an import path) replaces the
 optimizer class and the objective, feasibility and sensitivity models
-of an epoch, as in the JAX engine. Its meshes and telemetry are not
-ported.
+of an epoch, as in the JAX engine. With a ``telemetry`` `epoch` records
+what the JAX engine records: the ``gp_fit`` span with the ``train``
+phase, the ``ea_scan`` span with the ``optimize`` phase and
+``ea_generations_total``, the ``resample`` span with
+``resample_points_total`` and the ``resample`` event; the phases close
+where the epoch already synchronizes. Its meshes are not ported.
 """
 
 from __future__ import annotations
 
+import contextlib
 import inspect
 import itertools
 import time
@@ -51,6 +56,8 @@ from dmosopt_tpu_torch.config import (
 from dmosopt_tpu_torch.datatypes import EpochResults, OptHistory
 from dmosopt_tpu_torch.models import Model
 from dmosopt_tpu_torch.ops import crowding_distance, sort_mo
+from dmosopt_tpu_torch.telemetry import phase_scope, span_scope
+from dmosopt_tpu_torch.telemetry.hooks import generation_loop
 from dmosopt_tpu_torch.utils.device import resolve_device
 from dmosopt_tpu_torch.utils.prng import as_torch_generator
 
@@ -196,14 +203,15 @@ def _optimize_on_device(
         """n generations; returns the offspring they evaluated."""
         state = optimizer.state
         first = len(counts)
-        for _ in range(n):
-            x_gen, state = optimizer.generate_strategy(generator, state)
-            x_gen = torch.clamp(x_gen, lb, ub)
-            y_gen = eval_fn(x_gen)
-            state = optimizer.update_strategy(state, x_gen, y_gen)
-            xs.append(x_gen)
-            ys.append(y_gen)
-            counts.append(x_gen.shape[0])
+        with generation_loop():
+            for _ in range(n):
+                x_gen, state = optimizer.generate_strategy(generator, state)
+                x_gen = torch.clamp(x_gen, lb, ub)
+                y_gen = eval_fn(x_gen)
+                state = optimizer.update_strategy(state, x_gen, y_gen)
+                xs.append(x_gen)
+                ys.append(y_gen)
+                counts.append(x_gen.shape[0])
         optimizer.state = state
         return sum(counts[first:])
 
@@ -378,13 +386,15 @@ def optimize(
                 logger.info(
                     f"{optimizer.name}: generation {i} of {num_generations}..."
                 )
-            x_gen_dev, state_gen = optimizer.generate()
+            with generation_loop():
+                x_gen_dev, state_gen = optimizer.generate()
             # the host copy goes out for evaluation; the update keeps the
             # device-resident offspring
             x_gen = _to_np(x_gen_dev)
             y_gen = yield x_gen
             y_gen = np.asarray(y_gen, dtype=np.float32)
-            optimizer.update(x_gen_dev, y_gen, state_gen)
+            with generation_loop():
+                optimizer.update(x_gen_dev, y_gen, state_gen)
             n_eval += x_gen.shape[0]
             x_new.append(x_gen)
             y_new.append(y_gen)
@@ -517,6 +527,7 @@ def train(
     info: Optional[Dict[str, Any]] = None,
     surrogate_refit=None,
     device=None,
+    telemetry=None,
 ):
     """Fit the objective surrogate on feasible, deduplicated data
     (reference: dmosopt/MOASMO.py:473-532; ``dmosopt_tpu/moasmo.py:905-945``).
@@ -536,7 +547,8 @@ def train(
     keeping only the kwargs the sparse constructor names
     (`_sparse_kwargs`: ``dtype`` and the exact-GP knobs go); ``device``
     goes in apart from them. ``surrogate_return_mean_variance`` makes the
-    model's ``evaluate`` answer (mean, variance)."""
+    model's ``evaluate`` answer (mean, variance). ``telemetry`` feeds the
+    refit controller's counters and events."""
     x = np.asarray(Xinit).copy()
     y = np.asarray(Yinit).copy()
     n_total = x.shape[0]
@@ -576,7 +588,7 @@ def train(
             builder, x, y,
             nan=kwargs.get("nan", "remove"),
             top_k=kwargs.get("top_k"),
-            info=info,
+            telemetry=telemetry, info=info,
         )
     else:
         if surrogate_refit is not None:
@@ -683,6 +695,7 @@ def epoch(
     logger=None,
     file_path=None,
     device=None,
+    telemetry=None,
 ):
     """One MO-ASMO epoch as a host-side generator
     (reference: dmosopt/MOASMO.py:196-470).
@@ -723,6 +736,12 @@ def epoch(
     returns replace the optimizer class and the objective, feasibility
     and sensitivity models (``dmosopt_tpu/moasmo.py:1019-1095``), and the
     steps below fit only what it left None.
+
+    ``telemetry`` (a `telemetry.Telemetry` or None) records the
+    ``gp_fit``, ``ea_scan`` and ``resample`` spans, the ``train`` and
+    ``optimize`` phases and the ``resample`` event
+    (``dmosopt_tpu/moasmo.py:1113-1259``); None keeps the epoch free of
+    telemetry calls.
     """
     nInput = len(param_names)
     nOutput = len(objective_names)
@@ -781,17 +800,21 @@ def epoch(
         stats["feasibility_s"] = time.perf_counter() - t0
 
     if surrogate_method_name is not None and mdl.objective is None:
-        t0 = time.perf_counter()
-        mdl.objective = train(
-            nInput, nOutput, xlb, xub, Xinit, Yinit, C,
-            surrogate_method_name=surrogate_method_name,
-            surrogate_method_kwargs=surrogate_method_kwargs,
-            surrogate_return_mean_variance=optimize_mean_variance,
-            logger=logger, info=stats, surrogate_refit=surrogate_refit,
-            device=device,
-        )
-        _synchronize(device)
-        stats["train_s"] = time.perf_counter() - t0
+        with span_scope(telemetry, "gp_fit"), phase_scope(telemetry, "train") as ph:
+            t0 = time.perf_counter()
+            info: Dict[str, Any] = {}
+            mdl.objective = train(
+                nInput, nOutput, xlb, xub, Xinit, Yinit, C,
+                surrogate_method_name=surrogate_method_name,
+                surrogate_method_kwargs=surrogate_method_kwargs,
+                surrogate_return_mean_variance=optimize_mean_variance,
+                logger=logger, info=info, surrogate_refit=surrogate_refit,
+                device=device, telemetry=telemetry,
+            )
+            _synchronize(device)
+            stats["train_s"] = time.perf_counter() - t0
+            stats.update(info)
+            ph.update(info)
 
     di_dict = {}
     if mdl.sensitivity is not None:
@@ -840,11 +863,23 @@ def epoch(
         optimize_mean_variance=optimize_mean_variance,
         **optimizer_kwargs_,
     )
-    try:
-        x_gen = next(opt_gen)
-    except StopIteration as ex:
-        res = ex.value
-    else:
+    # a live span may not be held across a yield (the driver opens its
+    # evaluation spans meanwhile): the surrogate path, which never
+    # yields, gets a live ea_scan span; the evaluation path records its
+    # interval afterwards
+    finished = False
+    ea_ctx = (
+        span_scope(telemetry, "ea_scan")
+        if mdl.objective is not None
+        else contextlib.nullcontext()
+    )
+    with ea_ctx:
+        try:
+            x_gen = next(opt_gen)
+        except StopIteration as ex:
+            res = ex.value
+            finished = True
+    if not finished:
         while True:
             t_yield0 = time.perf_counter()
             _, y_gen, _c_gen = yield x_gen, True
@@ -862,14 +897,41 @@ def epoch(
     best_x, best_y = res.best_x, res.best_y
     gen_index, x, y = res.gen_index, res.x, res.y
 
+    if telemetry:
+        dt, n_gen = stats["optimize_s"], stats["n_generations"]
+        reasons = getattr(termination, "stop_reasons", lambda: [])()
+        if mdl.objective is None and telemetry.tracer is not None:
+            telemetry.tracer.record_span(
+                "ea_scan", t_opt0, time.perf_counter(),
+                suspended_s=round(t_suspended, 4),
+            )
+        telemetry.observe("phase_duration_seconds", dt, phase="optimize")
+        telemetry.event(
+            "phase", phase="optimize", duration_s=dt,
+            n_generations=n_gen, n_evals=int(x.shape[0]),
+            gens_per_sec=round(n_gen / dt, 3) if dt > 0 else None,
+            termination=(
+                "+".join(reasons) if reasons
+                else ("criterion" if termination is not None else "num_generations")
+            ),
+        )
+        telemetry.inc("ea_generations_total", n_gen)
+
     if mdl.objective is not None:
         # dedupe resample candidates against already-evaluated points
         # (reference MOASMO.py:441-448)
-        is_duplicate = get_duplicates(best_x, x_0, device=device)
-        best_x = best_x[~is_duplicate]
-        best_y = best_y[~is_duplicate]
-        D = _to_np(crowding_distance(torch.as_tensor(best_y)))
-        idxr = D.argsort()[::-1][:N_resample]
+        with span_scope(telemetry, "resample"):
+            is_duplicate = get_duplicates(best_x, x_0, device=device)
+            best_x = best_x[~is_duplicate]
+            best_y = best_y[~is_duplicate]
+            D = _to_np(crowding_distance(torch.as_tensor(best_y)))
+            idxr = D.argsort()[::-1][:N_resample]
+        if telemetry:
+            telemetry.inc("resample_points_total", len(idxr))
+            telemetry.event(
+                "resample", resample_batch=int(len(idxr)),
+                resample_duplicates_removed=int(is_duplicate.sum()),
+            )
         return {
             "x_resample": best_x[idxr, :], "y_pred": best_y[idxr, :],
             "gen_index": gen_index, "x_sm": x, "y_sm": y,

@@ -30,14 +30,22 @@ a CUDA device synchronizes before it returns, so its O(N³) work lands in
 the timed train phase and not in the first EA generation
 (predictor.py:384-391).
 
+With a telemetry attached for a run (`set_predictor_telemetry`, which
+`run()` sets and clears) every build counts in
+``gp_predictor_builds_total`` {regime}, sets ``gp_predictor_cache_bytes``
+(and ``gp_distill_error`` after a Nyström probe) and emits a
+``gp_predictor`` event; a predict outside the generation loop (the
+initial design's) is timed into ``gp_predict_seconds``, synchronizing
+the device first, as the JAX package times its eager calls; predicts
+inside the loop are not (`telemetry.hooks`).
+
 Not ported: ``query_sharding`` (mesh-sharded queries; it waits for the
-port's mesh support) and the process-level telemetry hook
-``set_predictor_telemetry`` (it waits for the port's telemetry layer).
-Caches are derived state and never persisted.
+port's mesh support). Caches are derived state and never persisted.
 """
 
 from __future__ import annotations
 
+import time
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -54,6 +62,18 @@ from dmosopt_tpu_torch.models.gp import (
 
 #: predictor regimes accepted by the exact-GP family's ``predictor`` option
 PREDICTOR_MODES = ("solve", "matmul", "nystrom")
+
+# the run's telemetry, set by `run()` for its duration (None: no calls)
+_TELEMETRY = None
+
+
+def set_predictor_telemetry(tel) -> None:
+    """Attach a `telemetry.Telemetry` (or None) to the predictor layer:
+    builds, cache bytes, distillation error and the latency of predicts
+    outside the generation loop (``dmosopt_tpu/models/predictor.py:79``).
+    Process-wide; `run()` sets it for the run and clears it after."""
+    global _TELEMETRY
+    _TELEMETRY = tel
 
 
 def _synchronize(t: torch.Tensor):
@@ -234,7 +254,9 @@ class GPPredictor:
         self.whitened = None  # (d, P, P) W = L⁻¹ (matmul regime)
         self.nystrom = None  # NystromCache (nystrom regime)
         self.distill_error: Optional[dict] = None
+        t0 = time.perf_counter()
         self._build()
+        self._record_build(time.perf_counter() - t0)
 
     # ------------------------------------------------------------- build
 
@@ -298,6 +320,29 @@ class GPPredictor:
             self.nystrom = None
         return ok
 
+    def _record_build(self, build_s: float):
+        tel = _TELEMETRY
+        if not tel:
+            return
+        tel.inc("gp_predictor_builds_total", regime=self.regime)
+        tel.gauge("gp_predictor_cache_bytes", float(self.cache_bytes()))
+        fields = dict(
+            regime=self.regime, mode=self.mode,
+            n_train=int((self.fit.train_mask > 0.0).sum()),
+            bucket=int(self.fit.X.shape[0]),
+            build_s=round(build_s, 6),
+            cache_bytes=int(self.cache_bytes()),
+        )
+        if self.distill_error is not None:
+            tel.gauge("gp_distill_error", self.distill_error["mean_err"])
+            fields.update(
+                distill_mean_err=round(self.distill_error["mean_err"], 6),
+                distill_var_ratio=round(self.distill_error["var_ratio"], 6),
+                distill_m=self.distill_error["m"],
+                fallback=not self.distill_error["ok"],
+            )
+        tel.event("gp_predictor", **fields)
+
     def cache_bytes(self) -> int:
         """Bytes held by the per-fit cache beyond the fit itself."""
         tensors = {"matmul": [self.whitened], "nystrom": self.nystrom}.get(self.regime)
@@ -306,12 +351,23 @@ class GPPredictor:
     # ----------------------------------------------------------- predict
 
     def predict_normalized(self, Xq: torch.Tensor):
-        """Mean and variance at unit-box queries, routed by regime."""
+        """Mean and variance at unit-box queries, routed by regime. With
+        the telemetry attached, a call outside the generation loop times
+        itself into ``gp_predict_seconds``."""
+        from dmosopt_tpu_torch.telemetry.hooks import in_generation_loop
+
+        tel = None if in_generation_loop() else _TELEMETRY
+        t0 = time.perf_counter() if tel else None
         if self.regime == "matmul":
-            return gp_predict_matmul(self.fit, self.whitened, Xq, kernel=self.kernel)
-        if self.regime == "nystrom":
-            return gp_predict_nystrom(self.nystrom, Xq, kernel=self.kernel)
-        return gp_predict(self.fit, Xq, kernel=self.kernel)
+            out = gp_predict_matmul(self.fit, self.whitened, Xq, kernel=self.kernel)
+        elif self.regime == "nystrom":
+            out = gp_predict_nystrom(self.nystrom, Xq, kernel=self.kernel)
+        else:
+            out = gp_predict(self.fit, Xq, kernel=self.kernel)
+        if tel:
+            _synchronize(out[0])
+            tel.observe("gp_predict_seconds", time.perf_counter() - t0)
+        return out
 
     # ----------------------------------------------- cross-epoch updates
 
@@ -329,9 +385,11 @@ class GPPredictor:
             and self.whitened is not None
             and fit.L.shape == self.fit.L.shape
         ):
+            t0 = time.perf_counter()
             new = self._clone_for(fit)
             new.whitened = extend_whitened_rank_k(self.whitened, fit.L, n_old, n_new)
             _synchronize(new.whitened)
+            new._record_build(time.perf_counter() - t0)
             return new
         return None
 

@@ -31,8 +31,12 @@ JSON-able dict (`export_state`), which the driver stores with the
 checkpoint in the JAX package's format, and a resumed run seeds its
 controller from it (its first fit is warm: no factor is cached).
 
-The ``telemetry`` arguments stay for the reference's signature; the
-port has no telemetry layer yet, so its callers pass None.
+With a ``telemetry`` (`moasmo.train` hands the run's down) each fit
+emits a ``surrogate_refit`` event naming its path, and the warm, audit
+and rank paths count in ``gp_warm_starts_total``,
+``gp_refit_audits_total``, ``gp_rank_updates_total``,
+``gp_rank_update_rows_total`` and ``gp_refit_steps_saved_total``, as
+the JAX controller's do.
 """
 
 from __future__ import annotations

@@ -34,6 +34,15 @@ front; with several blocks each step is checked.
 Semantics kept from the matrix peel: identical rows do not dominate each
 other (they share a front), rows containing NaN neither dominate nor are
 dominated (rank 0), masked rows get rank ``n`` and never dominate.
+
+Telemetry (`set_rank_telemetry`): with a run's telemetry attached, a
+call with d >= 3 outside the generation loop (`telemetry.hooks`; the
+JAX package counts eager calls only) adds the relaxation steps it ran
+to ``rank_peel_iterations_total`` and the column-block sweeps (steps ×
+blocks) to ``rank_tile_sweeps_total``, and sets ``rank_tile_size`` to
+the block width. The names are the JAX package's; what they count is
+this relaxation's steps and blocks, not the JAX tiled sweep's peels and
+tile pairs.
 """
 
 from __future__ import annotations
@@ -46,6 +55,17 @@ CHECK_EVERY = 8
 INNER = 32
 # default column block: about this many (rows x block) elements per temporary
 _BLOCK_ELEMENTS = 1 << 26
+
+# the run's telemetry, set by `run()` for its duration (None: no calls)
+_TELEMETRY = None
+
+
+def set_rank_telemetry(tel) -> None:
+    """Attach a `telemetry.Telemetry` (or None) to the rank
+    (``dmosopt_tpu/ops/dominance.py:51``). Process-wide; `run()` sets it
+    for the run and clears it after."""
+    global _TELEMETRY
+    _TELEMETRY = tel
 
 
 def default_block(n: int, batch: int = 1) -> int:
@@ -183,12 +203,22 @@ def non_dominated_rank(Y: torch.Tensor, mask=None, stop_count=None,
     # a step of several blocks already relaxes each diagonal block
     # 1 + INNER times, so it is checked after every step
     check = CHECK_EVERY if B >= n else 1
+    steps = 0
     for _ in range(-(-(n + 1) // check)):
         for _ in range(check):
             prev = r
             r = _relax_step(dom, prev, B)
+        steps += check
         if torch.equal(r, prev):
             break
+    tel = _TELEMETRY
+    if tel is not None and Y.shape[-1] >= 3:
+        from dmosopt_tpu_torch.telemetry.hooks import in_generation_loop
+
+        if not in_generation_loop():
+            tel.inc("rank_tile_sweeps_total", steps * -(-n // B))
+            tel.inc("rank_peel_iterations_total", steps)
+            tel.gauge("rank_tile_size", B)
     rank = torch.empty_like(r).scatter_(-1, order, r)
     if valid is not None:
         rank = torch.where(valid, rank, n)

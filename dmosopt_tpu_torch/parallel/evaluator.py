@@ -1,6 +1,6 @@
 """Objective-evaluation backends.
 
-Port of ``dmosopt_tpu/parallel/evaluator.py``, without telemetry:
+Port of ``dmosopt_tpu/parallel/evaluator.py``:
 
 - `HostFunEvaluator` (:384): the objective is host Python taking a
   parameter dict, run inline or fanned out over a thread pool of
@@ -17,6 +17,17 @@ results back as they complete: per-request futures with a timeout and
 retry budget for host objectives, chunks tracked by CUDA events for
 torch objectives. A request that exhausts its retries is delivered as
 an `EvalFailure`; the rest of the batch is unaffected.
+
+With a `Telemetry` attached by the driver (``evaluator.telemetry``)
+both count their batches (``eval_batches_total`` labelled with the
+backend, ``eval_batch_duration_seconds``) as the JAX package's do; the
+host backend counts timeouts, retries and terminal failures, the torch
+backend times the launch of its calls (``eval_dispatch_seconds``) and
+the copy of their outputs to the host (``eval_execute_seconds``). The
+torch backend's ``backend`` label is ``"torch"`` where the JAX
+package's device-batch evaluator says ``"jax"``, and it has no
+``eval_batch_compiles_total``: eager torch compiles no program per
+batch shape.
 """
 
 from __future__ import annotations
@@ -168,6 +179,23 @@ class _HostEvalHandle(AsyncEvalHandle):
         else:
             self._futures[index] = self._ev._ensure_pool().submit(run)
 
+    def _tel_inc(self, name):
+        tel = self._ev.telemetry
+        if tel:
+            tel.inc(name)
+
+    def _note_delivered(self):
+        """One request delivered; once the last one is, the batch's
+        submit-to-done wall goes to ``eval_batch_duration_seconds``."""
+        self.delivered += 1
+        if self.done:
+            tel = self._ev.telemetry
+            if tel:
+                tel.observe(
+                    "eval_batch_duration_seconds",
+                    time.perf_counter() - self.t_submit, backend="host",
+                )
+
     def _retry_or_fail(self, req, error, timed_out):
         """Timeout or error on the live attempt: resubmit while budget
         remains (returns None), else return an EvalFailure. The caller
@@ -175,6 +203,7 @@ class _HostEvalHandle(AsyncEvalHandle):
         req.attempts_used += 1
         req.attempt += 1
         if timed_out:
+            self._tel_inc("eval_timeouts_total")
             # only a pool attempt costs a worker slot; the evaluator
             # counts it so close() does not join the pool forever
             on_pool = self._futures.get(req.index) is not None
@@ -184,10 +213,12 @@ class _HostEvalHandle(AsyncEvalHandle):
             if self._ev._pool_exhausted():
                 self._migrate_queued_to_dedicated()
         if req.attempts_used <= self._retries:
+            self._tel_inc("eval_retries_total")
             self._submit_attempt(req)
             return None
+        self._tel_inc("eval_failures_total")
         self._finished.add(req.index)
-        self.delivered += 1
+        self._note_delivered()
         return EvalFailure(error, req.attempts_used, timed_out=timed_out)
 
     def _note_recovered(self, index, attempt):
@@ -248,7 +279,7 @@ class _HostEvalHandle(AsyncEvalHandle):
                     continue
                 if err is None:
                     self._finished.add(index)
-                    self.delivered += 1
+                    self._note_delivered()
                     return index, out
                 failure = self._retry_or_fail(req, err, timed_out=False)
             if failure is not None:
@@ -265,7 +296,7 @@ class _HostEvalHandle(AsyncEvalHandle):
                 if fut is not None and fut.cancel():
                     req.attempt += 1  # a racing start becomes stale
                     self._finished.add(req.index)
-                    self.delivered += 1
+                    self._note_delivered()
                     n += 1
         return n
 
@@ -282,7 +313,7 @@ class _HostEvalHandle(AsyncEvalHandle):
                     self._note_recovered(index, attempt)
                     continue
                 self._finished.add(index)
-                self.delivered += 1
+                self._note_delivered()
             if err is None:
                 out.append((index, res))
             # an errored attempt is dropped: no retry starts at teardown
@@ -301,6 +332,7 @@ class HostFunEvaluator:
     def __init__(self, eval_fun: Callable, n_workers: int = 1):
         self.eval_fun = eval_fun
         self.n_workers = int(n_workers)
+        self.telemetry = None  # attached by the driver when enabled
         # abandoned-worker accounting, changed from the driver thread and
         # from worker threads under different handles' locks
         self._n_abandoned = 0
@@ -332,9 +364,18 @@ class HostFunEvaluator:
     def evaluate_batch(
         self, space_vals_list: Sequence[Dict[Any, np.ndarray]]
     ) -> List[Dict]:
+        t0 = time.perf_counter()
         if self._pool is not None:
-            return list(self._pool.map(self.eval_fun, space_vals_list))
-        return [self.eval_fun(sv) for sv in space_vals_list]
+            out = list(self._pool.map(self.eval_fun, space_vals_list))
+        else:
+            out = [self.eval_fun(sv) for sv in space_vals_list]
+        tel = self.telemetry
+        if tel:
+            tel.inc("eval_batches_total", backend="host")
+            tel.observe(
+                "eval_batch_duration_seconds", time.perf_counter() - t0, backend="host"
+            )
+        return out
 
     def submit_batch(
         self, space_vals_list: Sequence[Dict[Any, np.ndarray]],
@@ -346,6 +387,8 @@ class HostFunEvaluator:
         a request is retried up to ``retries`` times after a timeout or
         an exception, then delivered as an `EvalFailure`; retry k first
         waits ``min(backoff * 2**(k-1), backoff_cap)`` (jittered)."""
+        if self.telemetry:
+            self.telemetry.inc("eval_batches_total", backend="host")
         return _HostEvalHandle(
             self, list(space_vals_list), timeout, retries,
             backoff=backoff, backoff_cap=backoff_cap,
@@ -377,12 +420,14 @@ class _TorchEvalHandle(AsyncEvalHandle):
     followed by a CUDA event; a chunk is ready when its event has
     completed. CPU chunks are ready when submitted."""
 
-    def __init__(self, total: int, chunks: List[Tuple[List[int], Any, Any, float]]):
+    def __init__(self, total: int, chunks: List[Tuple[List[int], Any, Any, float]],
+                 telemetry=None):
         super().__init__(total)
         # [(batch indices, rounds, {problem_id: (round positions, host
         #   outputs)}, CUDA event or None, t_submit)]
         self._chunks = list(chunks)
         self._buffer: List[Tuple[int, Dict]] = []
+        self._tel = telemetry
 
     @staticmethod
     def _ready(event) -> bool:
@@ -390,7 +435,7 @@ class _TorchEvalHandle(AsyncEvalHandle):
 
     def _open_chunk(self):
         indices, part, host_by_problem, _event, t_submit = self._chunks.pop(0)
-        self.t_landed = time.perf_counter()
+        t0 = self.t_landed = time.perf_counter()
         dt = (time.time() - t_submit) / max(self.total, 1)
         results = _rounds_to_results(part, {
             pid: (idx, tuple(h.numpy() for h in outs))
@@ -399,6 +444,15 @@ class _TorchEvalHandle(AsyncEvalHandle):
         for r in results:
             r["time"] = dt
         self._buffer = list(zip(indices, results))
+        if self._tel:
+            # the chunk's host assembly; with the last chunk also the
+            # batch's submit-to-land wall
+            self._tel.observe("eval_execute_seconds", time.perf_counter() - t0)
+            if not self._chunks:
+                self._tel.observe(
+                    "eval_batch_duration_seconds", time.time() - t_submit,
+                    backend=TorchBatchEvaluator.BACKEND,
+                )
 
     def poll(self, timeout: Optional[float] = None):
         """Next result of the first unfinished chunk. A chunk whose event
@@ -467,10 +521,14 @@ class TorchBatchEvaluator:
     in a batch gets one objective call of its stacked rows
     (`_stack_problems`, ``:663``)."""
 
+    #: the ``backend`` label of its batch counters
+    BACKEND = "torch"
+
     def __init__(self, batch_fun: Callable, device, problem_ids=None):
         self.batch_fun = batch_fun
         self.device = torch.device(device)
         self.problem_ids = list(problem_ids) if problem_ids is not None else [0]
+        self.telemetry = None  # attached by the driver when enabled
 
     def _launch(self, X: np.ndarray) -> Tuple[torch.Tensor, ...]:
         x = torch.as_tensor(X, dtype=torch.float32, device=self.device)
@@ -495,14 +553,26 @@ class TorchBatchEvaluator:
         if not space_vals_list:
             return []
         t0 = time.time()
-        outs_by_problem = {
-            pid: (idx, tuple(o.cpu().numpy() for o in self._launch(X)))
-            for pid, (idx, X) in self._stack_problems(space_vals_list).items()
-        }
+        tel = self.telemetry
+        outs_by_problem = {}
+        for pid, (idx, X) in self._stack_problems(space_vals_list).items():
+            t_launch = time.perf_counter()
+            outs = self._launch(X)
+            t_copy = time.perf_counter()
+            outs_by_problem[pid] = (idx, tuple(o.cpu().numpy() for o in outs))
+            if tel:
+                # the copy to the host waits for the call: launch, then run
+                tel.observe("eval_dispatch_seconds", t_copy - t_launch)
+                tel.observe("eval_execute_seconds", time.perf_counter() - t_copy)
         results = _rounds_to_results(space_vals_list, outs_by_problem)
         dt = (time.time() - t0) / len(space_vals_list)
         for r in results:
             r["time"] = dt
+        if tel:
+            tel.inc("eval_batches_total", backend=self.BACKEND)
+            tel.observe(
+                "eval_batch_duration_seconds", time.time() - t0, backend=self.BACKEND
+            )
         return results
 
     def submit_batch(
@@ -518,9 +588,13 @@ class TorchBatchEvaluator:
         call completes or the run is lost)."""
         rounds = list(space_vals_list)
         B = len(rounds)
+        tel = self.telemetry
+        if tel:
+            tel.inc("eval_batches_total", backend=self.BACKEND)
         n_chunks = max(1, min(int(n_chunks), B)) if B else 1
         chunk_len = max(-(-B // n_chunks), 1)
         t_submit = time.time()
+        t_disp0 = time.perf_counter()
         chunks = []
         for start in range(0, B, chunk_len):
             part = rounds[start:start + chunk_len]
@@ -546,7 +620,9 @@ class TorchBatchEvaluator:
                 (list(range(start, start + len(part))), part, host_by_problem,
                  event, t_submit)
             )
-        return _TorchEvalHandle(B, chunks)
+        if tel and B:
+            tel.observe("eval_dispatch_seconds", time.perf_counter() - t_disp0)
+        return _TorchEvalHandle(B, chunks, telemetry=tel)
 
     def close(self):
         pass

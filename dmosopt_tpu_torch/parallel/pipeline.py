@@ -2,7 +2,7 @@
 persistence writer.
 
 Port of ``dmosopt_tpu/parallel/pipeline.py`` (`PipelineConfig`,
-`BackgroundWriter`), without telemetry. The driver's ``pipeline`` knob
+`BackgroundWriter`). The driver's ``pipeline`` knob
 decides how much of an epoch overlaps:
 
 - ``serial``: the fully synchronous loop;
@@ -115,6 +115,11 @@ class BackgroundWriter:
     re-raised from the next `submit`/`flush`/`close` on the driver
     thread, and every later closure is skipped, so a failed append is
     never followed by later writes.
+
+    With ``telemetry`` each closure runs in an ``h5_write`` span on the
+    writer's thread, a retry counts in ``writer_retries_total``, and
+    ``submit``/``flush`` set the ``writer_queue_depth`` gauge
+    (``dmosopt_tpu/parallel/pipeline.py:191-270``).
     """
 
     # transient-failure retries: count, first backoff and its cap (s)
@@ -122,7 +127,8 @@ class BackgroundWriter:
     BACKOFF = 0.05
     BACKOFF_CAP = 2.0
 
-    def __init__(self):
+    def __init__(self, telemetry=None):
+        self.telemetry = telemetry
         self._q: "queue.Queue" = queue.Queue()
         # guards the error hand-off between the worker thread and the
         # driver thread; the closures themselves run outside it
@@ -143,7 +149,11 @@ class BackgroundWriter:
         attempt = 0
         while True:
             try:
-                fn(*args, **kwargs)
+                if self.telemetry:
+                    with self.telemetry.span("h5_write"):
+                        fn(*args, **kwargs)
+                else:
+                    fn(*args, **kwargs)
                 return
             except OSError as e:
                 if attempt >= self.MAX_RETRIES:
@@ -151,6 +161,8 @@ class BackgroundWriter:
                     return
                 delay = jittered_backoff(attempt, self.BACKOFF, self.BACKOFF_CAP)
                 attempt += 1
+                if self.telemetry:
+                    self.telemetry.inc("writer_retries_total")
                 time.sleep(delay)
             except BaseException as e:  # surfaced on the driver thread
                 self._record_error(e)
@@ -187,11 +199,15 @@ class BackgroundWriter:
             raise RuntimeError("BackgroundWriter is closed")
         self._raise_pending()
         self._q.put((fn, args, kwargs))
+        if self.telemetry:
+            self.telemetry.gauge("writer_queue_depth", self._q.qsize())
 
     def flush(self) -> None:
         """Block until every closure submitted so far has run; re-raise
         the first deferred write error."""
         self._q.join()
+        if self.telemetry:
+            self.telemetry.gauge("writer_queue_depth", 0)
         self._raise_pending()
 
     def close(self) -> None:

@@ -25,9 +25,11 @@ Layout:
     /{opt_id}/{problem_id}/optimizer_params/{epoch}  (json attrs)
     /{opt_id}/{problem_id}/optimizer_stats/{epoch}   (json attrs)
     /{opt_id}/{problem_id}.attrs["surrogate_refit"]  (json, latest epoch)
+    /{opt_id}/telemetry.attrs[{epoch}]               (json epoch summary)
+    /{opt_id}/telemetry_spans/{epoch}                (json string dataset)
+    /{opt_id}/telemetry_alerts/{epoch}               (json string dataset)
 
-Not ported yet: the telemetry, span and alert groups, and the fronts
-and service checkpoint.
+Not ported yet: the fronts and the service checkpoint.
 """
 
 from __future__ import annotations
@@ -298,6 +300,78 @@ def save_stats_to_h5(opt_id, problem_id, epoch, fpath, logger=None, stats=None):
                 grp.attrs[k] = v
             except TypeError:
                 grp.attrs[k] = str(v)
+
+
+def save_telemetry_to_h5(opt_id, epoch, summary, fpath, logger=None):
+    """Store one epoch's telemetry summary (`Telemetry.epoch_summary`)
+    under ``/{opt_id}/telemetry``, one JSON attribute keyed by the epoch
+    label (``dmosopt_tpu/storage.py:385``); a resumed run that lands on
+    the same epoch overwrites it."""
+    h5py = _require_h5py()
+    with h5py.File(fpath, "a") as h5:
+        _json_attr(h5_get_group(h5, f"{opt_id}/telemetry"), str(int(epoch)), summary)
+
+
+def load_telemetry_from_h5(fpath, opt_id) -> Dict[int, Dict]:
+    """Every stored epoch summary, ``{epoch: summary}`` (empty without
+    the group)."""
+    h5py = _require_h5py()
+    with h5py.File(fpath, "r") as h5:
+        key = f"{opt_id}/telemetry"
+        if key not in h5:
+            return {}
+        grp = h5[key]
+        return {int(k): json.loads(grp.attrs[k]) for k in grp.attrs}
+
+
+def _save_json_dataset(group, epoch, items, fpath):
+    h5py = _require_h5py()
+    with h5py.File(fpath, "a") as h5:
+        grp = h5_get_group(h5, group)
+        key = str(int(epoch))
+        if key in grp:
+            del grp[key]
+        grp.create_dataset(key, data=json.dumps(items, default=json_default))
+
+
+def _load_json_datasets(group, fpath) -> Dict[int, list]:
+    h5py = _require_h5py()
+    out: Dict[int, list] = {}
+    with h5py.File(fpath, "r") as h5:
+        grp = h5.get(group)
+        if grp is None:
+            return out
+        for key in grp:
+            raw = grp[key][()]
+            if isinstance(raw, bytes):
+                raw = raw.decode()
+            out[int(key)] = json.loads(raw)
+    return dict(sorted(out.items()))
+
+
+def save_spans_to_h5(opt_id, epoch, spans, fpath, logger=None):
+    """Store one epoch's closed spans (`Span.to_dict` dicts) as one JSON
+    string dataset ``/{opt_id}/telemetry_spans/{epoch}``
+    (``dmosopt_tpu/storage.py:398``): a dataset, since an epoch's spans
+    can pass the HDF5 attribute size limit."""
+    _save_json_dataset(f"{opt_id}/telemetry_spans", epoch, spans, fpath)
+
+
+def load_spans_from_h5(fpath, opt_id) -> Dict[int, list]:
+    """Every stored epoch's spans, ``{epoch: [span dicts]}``."""
+    return _load_json_datasets(f"{opt_id}/telemetry_spans", fpath)
+
+
+def save_alerts_to_h5(opt_id, epoch, alerts, fpath, logger=None):
+    """Store one epoch's health-alert transitions (`HealthEngine`
+    transition dicts) as ``/{opt_id}/telemetry_alerts/{epoch}``
+    (``dmosopt_tpu/storage.py:431``)."""
+    _save_json_dataset(f"{opt_id}/telemetry_alerts", epoch, alerts, fpath)
+
+
+def load_alerts_from_h5(fpath, opt_id) -> Dict[int, list]:
+    """Every stored epoch's alert transitions, ``{epoch: [dicts]}``."""
+    return _load_json_datasets(f"{opt_id}/telemetry_alerts", fpath)
 
 
 def save_refit_state_to_h5(opt_id, problem_id, state, fpath, logger=None):

@@ -33,6 +33,10 @@ fails at its first evaluation. ``surrogate_custom_training`` (an import
 path) and its kwargs pass through to every epoch. The problem-batched
 tenant core (`tenants.py`) opens an epoch with `open_epoch` and puts
 its result in place with `install_epoch_result` (``:417-470``).
+With a ``telemetry`` the initial design is an ``xinit`` phase (tagged
+``xinit_epoch``, the run's first epoch, so a resumed run's summary keeps
+it), a quarantined row counts in ``points_quarantined_total``, and each
+epoch's engine records its spans and phases (``:155``, ``:281``).
 """
 
 from __future__ import annotations
@@ -60,6 +64,7 @@ from dmosopt_tpu_torch.models.refit import (
 from dmosopt_tpu_torch.moasmo import get_duplicates
 from dmosopt_tpu_torch.ops import order_mo
 from dmosopt_tpu_torch.storage import feature_columns
+from dmosopt_tpu_torch.telemetry import phase_scope
 
 
 def anyclose(x, Y, rtol: float = 1e-4, atol: float = 1e-4) -> bool:
@@ -101,6 +106,7 @@ class DistOptStrategy:
         surrogate_custom_training_kwargs: Optional[Dict] = None,
         persist_features: bool = False, file_path=None,
         local_random=None, logger=None, device=None,
+        telemetry=None, xinit_epoch: int = 0,
     ):
         self.__dict__.update(
             prob=prob,
@@ -118,6 +124,7 @@ class DistOptStrategy:
             surrogate_custom_training=surrogate_custom_training,
             surrogate_custom_training_kwargs=surrogate_custom_training_kwargs,
             persist_features=persist_features, file_path=file_path,
+            telemetry=telemetry,
         )
         self.surrogate_method_kwargs = surrogate_method_kwargs or {}
         # cross-epoch surrogate reuse: one controller per problem; "cold"
@@ -150,12 +157,15 @@ class DistOptStrategy:
         # design skips as many points as the archive holds and drops the
         # points already in it
         n_previous = None if self.x is None else self.x.shape[0]
-        xinit = opt.xinit(
-            n_initial, prob.param_names, prob.lb, prob.ub,
-            method=initial_method, maxiter=initial_maxiter,
-            nPrevious=n_previous, local_random=self.local_random,
-            logger=self.logger,
-        )
+        with phase_scope(telemetry, "xinit", epoch=xinit_epoch) as ph:
+            xinit = opt.xinit(
+                n_initial, prob.param_names, prob.lb, prob.ub,
+                method=initial_method, maxiter=initial_maxiter,
+                nPrevious=n_previous, local_random=self.local_random,
+                logger=self.logger,
+            )
+            if xinit is not None:
+                ph["n_points"] = int(xinit.shape[0])
         self.reqs = deque()
         if xinit is not None:
             if xinit.shape[1] != prob.dim:
@@ -231,6 +241,8 @@ class DistOptStrategy:
                     f"quarantined non-finite objective row (y={y.tolist()}); "
                     f"{self.n_quarantined} total"
                 )
+            if self.telemetry:
+                self.telemetry.inc("points_quarantined_total")
             return None
         self.completed.append(entry)
         return entry
@@ -353,7 +365,7 @@ class DistOptStrategy:
             optimize_mean_variance=self.optimize_mean_variance,
             termination=self.termination,
             local_random=self.local_random, logger=self.logger,
-            device=self.device,
+            device=self.device, telemetry=self.telemetry,
         )
         try:
             x_gen, reduce_evals = next(self.opt_gen)

@@ -36,14 +36,26 @@ NSGA-II alone: an AGE-MOEA tenant takes the sequential path ("optimizer
 'age' not batched in the port yet"); its greedy survival over a
 tenants axis is the next port item.
 
+Telemetry (``telemetry=``, the driver's): a bucket's fit, generation
+loop and host tail run in ``gp_fit``, ``ea_scan`` and ``resample``
+spans labelled with the bucket and ``n_tenants``; ``tenant_cost`` child
+spans tile the fit and EA spans with each tenant's share, which also
+counts in ``tenant_cost_seconds``; the bucket counts in
+``tenant_bucket_epochs_total``, ``tenants_batched_total`` and the
+``tenant_bucket_size`` gauge and emits a ``tenant_bucket`` event, and an
+ineligible tenant counts in ``tenants_sequential_total``
+(``dmosopt_tpu/tenants.py:549-825``). The spans close after the
+device syncs the bucket already makes.
+
 Left out on purpose:
 
 - the JAX program cache and its AOT compile bookkeeping
   (``_PROGRAM_CACHE``, ``_BucketProgram``, ``_run_bucket_program``):
   they exist because XLA compiles a program per (bucket, T); eager torch
   compiles nothing, and the Triton kernel compiles once per process;
-- the telemetry spans and counters, which come with the port's
-  telemetry (the driver raises on ``telemetry``);
+- the compile and retrace counters of the bucket programs
+  (``tenant_bucket_compiles_total``, ``tenant_bucket_retraces_total``,
+  ``:502-515``): there is no program to count;
 - the JAX fit's ``FIT_CHUNK`` thread split (see `fit_gp_problems`);
 - the fall-back of a failed bucket to the sequential path
   (``dmosopt_tpu/tenants.py:870-896``): it would hide a kernel that
@@ -80,6 +92,8 @@ from dmosopt_tpu_torch.moasmo import (
     remove_duplicates,
 )
 from dmosopt_tpu_torch.ops import crowding_distance
+from dmosopt_tpu_torch.telemetry import span_scope
+from dmosopt_tpu_torch.telemetry.hooks import generation_loop
 from dmosopt_tpu_torch.utils.prng import as_torch_generator
 
 # optimizers whose state functions take stacked states in the port
@@ -321,7 +335,7 @@ def _freeze(act, new, old):
     return type(new)(**out)
 
 
-def run_bucket_epoch(plans: List[_TenantPlan], logger=None):
+def run_bucket_epoch(plans: List[_TenantPlan], telemetry=None, logger=None):
     """Advance every tenant of one bucket by one epoch: one batched GP
     fit, one batched predict of the initial designs, the stacked
     initialization, then one generation loop over the stacked states
@@ -329,7 +343,8 @@ def run_bucket_epoch(plans: List[_TenantPlan], logger=None):
     batched predict, the stacked survival, the active-mask freeze), and
     each tenant's host tail (dedupe against its archive, the
     crowding-distance resample). Returns ``{pid: result}`` in
-    `moasmo.epoch`'s surrogate-mode result shape."""
+    `moasmo.epoch`'s surrogate-mode result shape. ``telemetry`` records
+    the bucket's spans, its tenants' cost shares and its counters."""
     T = len(plans)
     d = plans[0].Yn.shape[1]
     n = plans[0].X_unit.shape[1]
@@ -338,19 +353,21 @@ def run_bucket_epoch(plans: List[_TenantPlan], logger=None):
     dev = optimizer.device
     fitcfg = _fit_config(plans[0].strat)
     G_max = max(p.num_generations for p in plans)
+    label = bucket_label(n, d, pop)
 
     # ---- the batched fit: a common bucket capacity, masked rows
     t_fit0 = time.perf_counter()
     cap = max(_bucket_size(p.X_unit.shape[0]) for p in plans)
-    padded = [_pad_to_bucket(p.X_unit, p.Yn, cap=cap) for p in plans]
     f32 = lambda a: torch.as_tensor(np.stack(a).astype(np.float32), device=dev)  # noqa: E731
-    fit = fit_gp_problems(
-        [p.fit_gen for p in plans], f32([a[0] for a in padded]),
-        f32([a[1] for a in padded]), f32([a[2] for a in padded]), **fitcfg,
-    )
-    fit.y_mean = f32([p.y_mean for p in plans])
-    fit.y_std = f32([p.y_std for p in plans])
-    _synchronize(dev)
+    with span_scope(telemetry, "gp_fit", bucket=label, n_tenants=T) as fit_span:
+        padded = [_pad_to_bucket(p.X_unit, p.Yn, cap=cap) for p in plans]
+        fit = fit_gp_problems(
+            [p.fit_gen for p in plans], f32([a[0] for a in padded]),
+            f32([a[1] for a in padded]), f32([a[2] for a in padded]), **fitcfg,
+        )
+        fit.y_mean = f32([p.y_mean for p in plans])
+        fit.y_std = f32([p.y_std for p in plans])
+        _synchronize(dev)
     fit_wall = time.perf_counter() - t_fit0
     nmll = fit.nmll.detach().cpu().numpy().astype(np.float64)
     n_iter = int(fitcfg["n_iter"])
@@ -376,39 +393,41 @@ def run_bucket_epoch(plans: List[_TenantPlan], logger=None):
     # ---- the initial populations: the designs' y from the fresh fits,
     # then each tenant's [archive ; design] rows at a common masked size
     t_ea0 = time.perf_counter()
-    x_design = torch.as_tensor(np.stack([p.x_init for p in plans]), device=dev)
-    y_init = batched_eval(x_design).cpu().numpy().astype(np.float32)
-    n_cat = [p.x0.shape[0] + p.x_init.shape[0] for p in plans]
-    P_init = max(n_cat)
-    Xcat = np.zeros((T, P_init, n), np.float32)
-    Ycat = np.zeros((T, P_init, d), np.float32)
-    Mcat = np.zeros((T, P_init), bool)
-    for t, p in enumerate(plans):
-        Xcat[t, : n_cat[t]] = np.vstack([p.x0, p.x_init])
-        Ycat[t, : n_cat[t]] = np.vstack([p.y0, y_init[t]])
-        Mcat[t, : n_cat[t]] = True
-    states = optimizer.initialize_state(
-        None, torch.as_tensor(Xcat, device=dev), torch.as_tensor(Ycat, device=dev),
-        bounds, mask=torch.as_tensor(Mcat, device=dev),
-    )
+    with span_scope(telemetry, "ea_scan", bucket=label, n_tenants=T) as ea_span:
+        x_design = torch.as_tensor(np.stack([p.x_init for p in plans]), device=dev)
+        y_init = batched_eval(x_design).cpu().numpy().astype(np.float32)
+        n_cat = [p.x0.shape[0] + p.x_init.shape[0] for p in plans]
+        P_init = max(n_cat)
+        Xcat = np.zeros((T, P_init, n), np.float32)
+        Ycat = np.zeros((T, P_init, d), np.float32)
+        Mcat = np.zeros((T, P_init), bool)
+        for t, p in enumerate(plans):
+            Xcat[t, : n_cat[t]] = np.vstack([p.x0, p.x_init])
+            Ycat[t, : n_cat[t]] = np.vstack([p.y0, y_init[t]])
+            Mcat[t, : n_cat[t]] = True
+        states = optimizer.initialize_state(
+            None, torch.as_tensor(Xcat, device=dev), torch.as_tensor(Ycat, device=dev),
+            bounds, mask=torch.as_tensor(Mcat, device=dev),
+        )
 
-    # ---- the generation loop; tenants past their budget stay frozen
-    active = np.zeros((G_max, T), bool)
-    for t, p in enumerate(plans):
-        active[: p.num_generations, t] = True
-    active = torch.as_tensor(active, device=dev)
-    gens = [p.loop_gen for p in plans]
-    xs, ys = [], []
-    for g in range(G_max):
-        x_gen, new = optimizer.generate_strategy(gens, states)
-        x_gen = torch.clamp(x_gen, lb, ub)
-        y_gen = batched_eval(x_gen)
-        new = optimizer.update_strategy(new, x_gen, y_gen)
-        states = _freeze(active[g], new, states)
-        xs.append(x_gen)
-        ys.append(y_gen)
-    x_traj = torch.stack(xs).cpu().numpy()  # (G, T, noff, n)
-    y_traj = torch.stack(ys).cpu().numpy()
+        # ---- the generation loop; tenants past their budget stay frozen
+        active = np.zeros((G_max, T), bool)
+        for t, p in enumerate(plans):
+            active[: p.num_generations, t] = True
+        active = torch.as_tensor(active, device=dev)
+        gens = [p.loop_gen for p in plans]
+        xs, ys = [], []
+        with generation_loop():
+            for g in range(G_max):
+                x_gen, new = optimizer.generate_strategy(gens, states)
+                x_gen = torch.clamp(x_gen, lb, ub)
+                y_gen = batched_eval(x_gen)
+                new = optimizer.update_strategy(new, x_gen, y_gen)
+                states = _freeze(active[g], new, states)
+                xs.append(x_gen)
+                ys.append(y_gen)
+        x_traj = torch.stack(xs).cpu().numpy()  # (G, T, noff, n)
+        y_traj = torch.stack(ys).cpu().numpy()
     ea_wall = time.perf_counter() - t_ea0
     noff = x_traj.shape[2]
 
@@ -419,49 +438,98 @@ def run_bucket_epoch(plans: List[_TenantPlan], logger=None):
     for p in plans:
         p.stats["cost_fit_seconds"] = fit_wall * p.X_unit.shape[0] / row_total
         p.stats["cost_ea_seconds"] = ea_wall * p.num_generations / gen_total
+    if telemetry:
+        _record_costs(telemetry, plans, label, fit_span, ea_span)
 
     # ---- each tenant's host tail: trajectories, dedupe, resample
     results = {}
-    for t, p in enumerate(plans):
-        G_t = p.num_generations
-        gen_index = np.concatenate(
-            [np.zeros((n_cat[t],), np.uint32)]
-            + [np.full((noff,), g + 1, dtype=np.uint32) for g in range(G_t)]
+    with span_scope(telemetry, "resample", bucket=label, n_tenants=T):
+        for t, p in enumerate(plans):
+            G_t = p.num_generations
+            gen_index = np.concatenate(
+                [np.zeros((n_cat[t],), np.uint32)]
+                + [np.full((noff,), g + 1, dtype=np.uint32) for g in range(G_t)]
+            )
+            x_all = np.vstack([Xcat[t, : n_cat[t]], x_traj[:G_t, t].reshape(-1, n)])
+            y_all = np.vstack([Ycat[t, : n_cat[t]], y_traj[:G_t, t].reshape(-1, d)])
+            p.optimizer.state = _slice_state(states, t)
+            best_x, best_y = (a.detach().cpu().numpy() for a in p.optimizer.population_objectives)
+            is_duplicate = get_duplicates(best_x, p.x0, device=dev)
+            best_x, best_y = best_x[~is_duplicate], best_y[~is_duplicate]
+            D = crowding_distance(torch.as_tensor(best_y)).numpy()
+            idxr = D.argsort()[::-1][: p.n_resample]
+            obj = p.stats["objective"]
+            p.stats.update(
+                train_s=p.stats["cost_fit_seconds"], optimize_s=p.stats["cost_ea_seconds"],
+                n_generations=G_t, n_train=int(p.X_unit.shape[0]), surrogate="gpr",
+                gp_predictor="solve", surrogate_loss=obj["loss"],
+                fit_n_steps=obj["n_steps"], fit_early_stopped=obj["early_stopped"],
+            )
+            results[p.pid] = {
+                "x_resample": best_x[idxr, :], "y_pred": best_y[idxr, :],
+                "gen_index": gen_index, "x_sm": x_all, "y_sm": y_all,
+                "optimizer": p.optimizer, "stats": dict(p.stats),
+            }
+    if telemetry:
+        telemetry.inc("tenant_bucket_epochs_total", bucket=label)
+        telemetry.inc("tenants_batched_total", T)
+        telemetry.gauge("tenant_bucket_size", T, bucket=label)
+        telemetry.observe("phase_duration_seconds", fit_wall, phase="train")
+        telemetry.observe("phase_duration_seconds", ea_wall, phase="optimize")
+        telemetry.event(
+            "tenant_bucket", bucket=label, n_tenants=T,
+            n_generations=G_max, train_cap=int(cap),
+            fit_s=round(fit_wall, 4), ea_s=round(ea_wall, 4),
+            gens_per_sec=(
+                round(sum(p.num_generations for p in plans) / ea_wall, 3)
+                if ea_wall > 0 else None
+            ),
         )
-        x_all = np.vstack([Xcat[t, : n_cat[t]], x_traj[:G_t, t].reshape(-1, n)])
-        y_all = np.vstack([Ycat[t, : n_cat[t]], y_traj[:G_t, t].reshape(-1, d)])
-        p.optimizer.state = _slice_state(states, t)
-        best_x, best_y = (a.detach().cpu().numpy() for a in p.optimizer.population_objectives)
-        is_duplicate = get_duplicates(best_x, p.x0, device=dev)
-        best_x, best_y = best_x[~is_duplicate], best_y[~is_duplicate]
-        D = crowding_distance(torch.as_tensor(best_y)).numpy()
-        idxr = D.argsort()[::-1][: p.n_resample]
-        obj = p.stats["objective"]
-        p.stats.update(
-            train_s=p.stats["cost_fit_seconds"], optimize_s=p.stats["cost_ea_seconds"],
-            n_generations=G_t, n_train=int(p.X_unit.shape[0]), surrogate="gpr",
-            gp_predictor="solve", surrogate_loss=obj["loss"],
-            fit_n_steps=obj["n_steps"], fit_early_stopped=obj["early_stopped"],
-        )
-        results[p.pid] = {
-            "x_resample": best_x[idxr, :], "y_pred": best_y[idxr, :],
-            "gen_index": gen_index, "x_sm": x_all, "y_sm": y_all,
-            "optimizer": p.optimizer, "stats": dict(p.stats),
-        }
     if logger is not None:
         logger.info(
-            f"tenant bucket {bucket_label(n, d, pop)}: {T} tenants, fit "
+            f"tenant bucket {label}: {T} tenants, fit "
             f"{fit_wall:.3f}s (cap {cap}), EA {ea_wall:.3f}s ({G_max} gens)"
         )
     return results
+
+
+def _record_costs(telemetry, plans, label, fit_span, ea_span):
+    """Each tenant's share of the bucket's fit and EA walls: the
+    ``tenant_cost_seconds`` counter and ``tenant_cost`` child spans that
+    tile the bucket's ``gp_fit`` and ``ea_scan`` spans in tenant order
+    (``dmosopt_tpu/tenants.py:683-709``; the port has no compile share)."""
+    for p in plans:
+        for phase in ("fit", "ea"):
+            telemetry.inc(
+                "tenant_cost_seconds", p.stats[f"cost_{phase}_seconds"],
+                tenant=str(p.pid), phase=phase,
+            )
+    tracer = telemetry.tracer
+    if tracer is None:
+        return
+    for parent, phase in ((fit_span, "fit"), (ea_span, "ea")):
+        if parent is None or parent.t_end is None:
+            continue
+        # the shares sum to walls clocked over a slightly larger interval
+        # than the span: clamp so the tiling never overruns its parent
+        t_cursor = parent.t_start
+        for p in plans:
+            share = p.stats[f"cost_{phase}_seconds"]
+            t0 = min(t_cursor, parent.t_end)
+            t_cursor += share
+            tracer.record_span(
+                "tenant_cost", t0, min(t_cursor, parent.t_end),
+                parent=parent, tenant=str(p.pid), phase=phase,
+                bucket=label, seconds=round(share, 6),
+            )
 
 
 # ------------------------------------------------------------ entry point
 
 
 def initialize_epochs_batched(
-    strategies: Dict[Any, Any], epoch, *, min_bucket: int = 2, logger=None,
-    on_error=None,
+    strategies: Dict[Any, Any], epoch, *, min_bucket: int = 2, telemetry=None,
+    logger=None, on_error=None,
 ):
     """Open every strategy's epoch: bucket-mates through `run_bucket_epoch`,
     everyone else through the sequential `initialize_epoch`
@@ -479,7 +547,9 @@ def initialize_epochs_batched(
     whose sequential epoch or plan raises, and every tenant of a bucket
     whose run raises, is reported to it and routed ``"failed"`` while the
     others go on; no bucket is re-run on the sequential path. When None
-    (the driver's case) the exception propagates."""
+    (the driver's case) the exception propagates. ``telemetry`` goes to
+    every bucket; an ineligible tenant counts in
+    ``tenants_sequential_total``."""
     epochs = epoch if isinstance(epoch, dict) else {pid: epoch for pid in strategies}
     sigs: Dict[Any, Optional[Tuple]] = {}
     for pid, strat in strategies.items():
@@ -493,6 +563,8 @@ def initialize_epochs_batched(
             sigs[pid] = None
             if logger is not None:
                 logger.info(f"tenant {pid}: sequential path ({reason})")
+            if telemetry:
+                telemetry.inc("tenants_sequential_total")
     counts: Dict[Tuple, int] = {}
     for sig in sigs.values():
         if sig is not None:
@@ -520,7 +592,7 @@ def initialize_epochs_batched(
 
     for sig, plans in buckets.items():
         try:
-            results = run_bucket_epoch(plans, logger=logger)
+            results = run_bucket_epoch(plans, telemetry=telemetry, logger=logger)
         except Exception as e:
             if on_error is None:
                 raise

@@ -7,7 +7,8 @@ Small port versions of tests/test_pipeline.py's oracles: ``overlap_io``
 request under ``skip`` drops only its row, under ``raise`` aborts the
 run; ``speculative`` returns at quorum and reconciles its stragglers; a
 time-limit stop keeps the results that had landed. The host evaluator's
-`submit_batch` is held against the JAX one on one scripted objective.
+`submit_batch` is held against the JAX one on one scripted objective,
+its telemetry counters (batches, timeouts, retries, failures) included.
 """
 
 import threading
@@ -19,6 +20,7 @@ import torch
 
 torch.set_num_threads(1)
 
+from dmosopt_tpu import telemetry as jax_telemetry
 from dmosopt_tpu.parallel import evaluator as jax_evaluator
 from dmosopt_tpu.parallel.pipeline import PipelineConfig as JaxPipelineConfig
 
@@ -27,6 +29,7 @@ from dmosopt_tpu_torch.benchmarks.zdt import zdt1
 from dmosopt_tpu_torch.driver import DistOptimizer, dopt_dict
 from dmosopt_tpu_torch.parallel import evaluator as port_evaluator
 from dmosopt_tpu_torch.parallel.pipeline import BackgroundWriter, PipelineConfig
+from dmosopt_tpu_torch import telemetry as port_telemetry
 
 N_DIM = 4
 
@@ -122,14 +125,18 @@ def test_background_writer_runs_in_order_and_surfaces_errors():
 
 def test_serial_and_overlap_io_stores_are_byte_identical(tmp_path, monkeypatch):
     """The wall clock is the one nondeterministic input of the store
-    (stats), so it is frozen; what remains is the write sequence."""
+    (stats), so it is frozen; what remains is the write sequence. The
+    telemetry groups (random trace ids, the spans' threads) stay out, as
+    the JAX package's pin runs with ``telemetry=False``
+    (tests/test_pipeline.py)."""
     monkeypatch.setattr(time, "time", lambda: 0.0)
     monkeypatch.setattr(time, "perf_counter", lambda: 0.0)
     blobs = {}
     for mode in ("serial", None):
         fp = tmp_path / f"{mode}.h5"
         dopt = _run(opt_id="bytes", file_path=str(fp), save=True, save_eval=5,
-                    save_surrogate_evals=True, pipeline=mode, n_epochs=3)
+                    save_surrogate_evals=True, pipeline=mode, n_epochs=3,
+                    telemetry=False)
         blobs[dopt.pipeline.mode] = fp.read_bytes()
     assert blobs["overlap_io"] == blobs["serial"]
 
@@ -224,6 +231,8 @@ def _scripted_objective(release):
 def _collect(module, retries, release):
     obj, attempts = _scripted_objective(release)
     ev = module.HostFunEvaluator(obj, n_workers=2)
+    tel_module = port_telemetry if module is port_evaluator else jax_telemetry
+    ev.telemetry = tel = tel_module.Telemetry()
     try:
         h = ev.submit_batch([{"i": np.array(i)} for i in range(4)],
                             timeout=0.2, retries=retries, backoff=0.01)
@@ -242,7 +251,10 @@ def _collect(module, retries, release):
             if isinstance(r, module.EvalFailure) else ("ok", float(r[0][0])))
         for i, r in got.items()
     }
-    return summary, dict(attempts)
+    snap = tel.registry.snapshot()
+    batches = snap["histograms"]["eval_batch_duration_seconds"]["backend=host"]
+    counts = (snap["counters"], batches["count"])
+    return summary, dict(attempts), counts
 
 
 @pytest.mark.parametrize("retries", [0, 1])
@@ -258,7 +270,8 @@ def test_host_submit_batch_matches_jax(retries):
         for t in set(threading.enumerate()) - before:
             t.join(5.0)
     assert port == ref
-    summary, attempts = port
+    summary, attempts, (counters, n_batches) = port
+    assert counters["eval_timeouts_total"][""] == retries + 1 and n_batches == 1
     assert summary[2] == ("failure", True, retries + 1, "NoneType")
     assert summary[1] == (("failure", False, 1, "ValueError") if retries == 0
                           else ("ok", 1.0))

@@ -256,7 +256,7 @@ def test_pairwise_distances_match_jax():
 
 
 @pytest.mark.parametrize("option", [{"jax_objective": True}, {"mesh": object()},
-                                    {"telemetry": True}])
+                                    {"stats_per_problem": False}])
 def test_options_not_ported_still_raise(option):
     with pytest.raises(NotImplementedError):
         port_driver.DistOptimizer(**_params("x", **option), device="cpu")

@@ -121,7 +121,7 @@ def test_run_with_constraints_returns_feasible_points():
 
 
 @pytest.mark.parametrize(
-    "option", [{"telemetry": True}, {"mesh": object()}, {"jax_objective": True}],
+    "option", [{"stats_per_problem": True}, {"mesh": object()}, {"jax_objective": True}],
 )
 def test_unported_driver_options_raise(option):
     with pytest.raises(NotImplementedError):
@@ -144,7 +144,8 @@ def _featured_zdt1(pp):
     [{"tenant_batching": True, "problem_ids": {0, 1}, "obj_fun": _problems_zdt1},
      {"feature_dtypes": [("f", np.float32)], "obj_fun": _featured_zdt1},
      {"surrogate_custom_training": "no.such.hook"},
-     {"problem_ids": {0, 1}, "obj_fun": _problems_zdt1}],
+     {"problem_ids": {0, 1}, "obj_fun": _problems_zdt1},
+     {"telemetry": True}],
 )
 def test_ported_driver_options_run(option):
     params = _params(opt_id="ported_option", n_epochs=1, num_generations=2, n_initial=2,
