@@ -25,9 +25,10 @@ It imports nothing of JAX nor of the JAX package. Phases, in order:
    pairs of 10 genes) with distinct per-gene distribution indices, as the
    sensitivity analysis sets them; and the fused kernel's bucket launch
    (a leading tenants axis, one launch for the bucket) at ``bench.py``
-   Config 11's 64 tenants of 8 pairs of 4 genes and at 16 tenants of
-   the quick start's step, with rates and per-gene indices that differ
-   between tenants.
+   Config 11's 64 tenants of 8 pairs of 4 genes, at 16 tenants of the
+   quick start's step and at Config 12's widest bucket (16 tenants of 8
+   pairs of 7 genes, phase 15), with rates and per-gene indices that
+   differ between tenants.
    For each it prints the device
    time per launch, the plain version's, the host time per call of
    both, the bytes the function must move, GB/s, and the bound;
@@ -162,10 +163,11 @@ It imports nothing of JAX nor of the JAX package. Phases, in order:
    update to a fresh solve of the updated fit. (c) Part B: the
    zdt1_agemoea_gpr run (``refit_params``: ZDT1 with 30 parameters as a
    batched torch objective, AGE-MOEA, pop 100, 100 generations, 8
-   initial points per parameter, 5 epochs, resample 0.25, `gpr` at 4 x
-   100, seed 42) cold, with ``surrogate_refit="warm"`` and with
+   initial points per parameter, resample 0.25, `gpr` at 4 x 100, seed
+   42; 3 epochs where the bench runs 5, a cut that pays for phase 15)
+   cold, with ``surrogate_refit="warm"`` and with
    ``predictor="matmul"``, printing each run's wall and ``within_0.05``;
-   each launches the fused kernel 500 times and the standalone kernels
+   each launches the fused kernel 300 times and the standalone kernels
    never, and keeps a distinct finite archive; the warm run's refit
    history starts cold and moves on. ``within_0.05`` is not gated: runs
    whose surrogate stays the first epoch's read within the cold runs'
@@ -229,6 +231,38 @@ It imports nothing of JAX nor of the JAX package. Phases, in order:
    gate. (c) ``bench.py`` Config 11 at 16 problems with a capture of
    epoch 1: the bucket's rows and each tenant's device seconds, whose
    sum must be within 5% of the bucket rows'.
+
+15. the ask/tell service (`dmosopt_tpu_torch.OptimizationService`) on the
+   card, every tenant a batched torch objective, with the counters reset
+   just before each ``run()`` and read just after. (a) ``bench.py``
+   Config 12 as the bench defines it (``bench.py:1200-1338``: ZDT1 at
+   dims 4, 5, 6 and 7, round-robin, four static buckets, pop 16, 8
+   generations, 2 epochs, 3 initial points per parameter, `gpr` with 2
+   starts and 40 steps, ``min_bucket`` 2, seeds 100 + i) at T = 16 and
+   64, lockstep against ``scheduler=True``, interleaved, best of 2,
+   printing both walls, ``scheduler_speedup`` and the task graph's nodes
+   at the last step: every tenant completes its epochs and streams a
+   finite non-dominated front each epoch, the fused kernel launches 64
+   times a run (4 buckets x 2 epochs x 8 generations) and the standalone
+   kernels never, and each tenant's last front agrees between the modes
+   within FRONT_RTOL (printed: bitwise or not). (b) One capture of step 1
+   at T = 64 in each mode, the profiler warmed first: every bucket's
+   ``gp_fit`` and ``ea_scan`` rows join with device time above 0 (under
+   the scheduler their spans open on worker threads); both busy
+   fractions and their ratio are printed, ungated. (c) T = 16 under the
+   scheduler with a `FaultPlan` (two tenants' first batches raise once,
+   a third's first three rows come back NaN, all in one bucket) and a
+   skipping `EvalPolicy` with retries, through `FaultyEvaluator` over
+   `TorchBatchEvaluator`: the clean buckets' tenants' last fronts agree
+   with the fault-free run's within FRONT_RTOL, the faulty tenants report
+   degraded or quarantined points. (d) The same service with
+   ``exporter=True``: ``/metrics`` scraped after its first step parses
+   with the port's parser and equals the registry's counters and gauges,
+   ``/healthz`` answers, and ``close()`` joins the exporter's thread.
+   (e) 16 tenants at the quick start's width (ZDT1 dim 30, pop 200, 100
+   generations, 2 epochs) in one bucket under the scheduler: one fused
+   launch a generation. The chip machine has no h5py, so no phase saves
+   a front or a checkpoint; the CPU tests hold those paths.
 
 ``python3 chip_smoke.py --phases 2,9,10`` runs the named phases only
 (phase 1 always), without the kernels and result lines.
@@ -294,11 +328,13 @@ OFFSPRING_SHAPES = {
     "large": (65536, 256, 131072, 65536),
 }
 # the bucket launch of the problem-batched core: (tenants, (npairs, n,
-# population, pool size)) at bench.py Config 11's step (pop 16, dim 4)
-# and at 16 tenants of the quick start's step
+# population, pool size)) at bench.py Config 11's step (pop 16, dim 4),
+# at 16 tenants of the quick start's step, and at the widest bucket of
+# Config 12 at T = 64 (phase 15: 16 tenants of dim 7)
 BUCKET_SHAPES = {
     "bucket_config11": (64, (8, 4, 16, 8)),
     "bucket_quick16": (16, (100, 30, 200, 100)),
+    "bucket_config12": (16, (8, 7, 16, 8)),
 }
 # calls queued per timing round: the kernels launch once per call, the
 # standalone plain versions 15-25 times, the plain offspring step ~55
@@ -1592,6 +1628,9 @@ def sa_run(torch, V, smi):
 
 # bench.py Configs 8 and 9 Part B (phase 11): zdt1_agemoea_gpr
 REFIT_DIM, REFIT_EPOCHS, REFIT_POP, REFIT_GENERATIONS = 30, 5, 100, 100
+# phase 11 (c) cuts Part B from the bench's 5 epochs to 3 (about 23 s of
+# the script), so that phase 15 fits the script's time
+PART_B_EPOCHS = 3
 
 
 def refit_params(opt_id, obj_fun, mode, **over):
@@ -1847,7 +1886,7 @@ def config8_refit(torch, smi):
 def refit_e2e(torch, V, smi):
     """Phase 11 (c): bench.py Configs 8 and 9 Part B, zdt1_agemoea_gpr
     cold (Config 9's solve), warm and with the matmul predictor; each
-    launches the fused offspring kernel once a generation (500) and the
+    launches the fused offspring kernel once a generation (300) and the
     standalone kernels never. ``within_0.05`` is printed, not gated: runs
     whose surrogate stays the first epoch's read within the cold runs'
     range in both packages (tools/refit_quality.py, seeds 42-44), so no
@@ -1859,14 +1898,15 @@ def refit_e2e(torch, V, smi):
     from dmosopt_tpu_torch.benchmarks.zdt import zdt1
     from dmosopt_tpu_torch.driver import dopt_dict
 
-    n_gen = REFIT_EPOCHS * REFIT_GENERATIONS
+    n_gen = PART_B_EPOCHS * REFIT_GENERATIONS
     out, launches = {}, {}
     for mode in ("cold", "warm", "matmul"):
         opt_id = f"zdt1_agemoea_gpr_{mode}"
         V.reset_kernel_launches()
         t0 = time.perf_counter()
         best = dmosopt_tpu_torch.run(
-            refit_params(opt_id, zdt1, mode, torch_objective=True), verbose=False)
+            refit_params(opt_id, zdt1, mode, torch_objective=True,
+                         n_epochs=PART_B_EPOCHS), verbose=False)
         wall = time.perf_counter() - t0
         launches[mode] = dict(V.KERNEL_LAUNCHES)
         dopt = dopt_dict[opt_id]
@@ -2626,6 +2666,335 @@ def telemetry_phase(torch, V, smi):
     return {"quick_start": quick, "config11_T16": bucket}
 
 
+# bench.py Config 12 (phase 15): T tenants of ZDT1 at dims 4-7,
+# round-robin (four static buckets), pop 16, 8 generations, 2 epochs, 3
+# initial points per parameter, `gpr` with 2 starts and 40 steps, seeds
+# 100 + i; lockstep against the task-graph scheduler
+CONFIG12_TENANTS = (16, 64)
+CONFIG12_DIMS = (4, 5, 6, 7)
+CONFIG12 = dict(population_size=16, num_generations=8, n_epochs=2, n_initial=3)
+CONFIG12_SMK = {"n_starts": 2, "n_iter": 40, "seed": 0}
+# the run's fused launches: each bucket's generation loop launches the
+# offspring kernel once a generation for all its tenants
+# (`tenants.run_bucket_epoch`), every tenant rides a bucket (T / 4 >= 2
+# = min_bucket), and the buckets run every epoch: 4 x 2 x 8
+CONFIG12_LAUNCHES = len(CONFIG12_DIMS) * CONFIG12["n_epochs"] * CONFIG12["num_generations"]
+# scheduler and lockstep fronts must agree to this relative tolerance
+FRONT_RTOL = 1e-5
+# (c)'s fault plan: two tenants' first batches raise once at the torch
+# evaluator's result layer and a third's first three rows come back
+# NaN, all three in the d4 bucket (tenants 0, 4, 8; tenant 12 is their
+# bucket-mate), so the other three buckets hold only clean tenants
+FAULT_RAISE = ("tg_16_0", "tg_16_4")
+FAULT_NAN = ("tg_16_8", 3)
+FAULT_BUCKET_MATE = "tg_16_12"
+
+
+def _service_submit(svc, T, i, seed_base=100, dims=CONFIG12_DIMS, **over):
+    from dmosopt_tpu_torch.benchmarks.zdt import zdt1
+
+    dim = dims[i % len(dims)]
+    kw = dict(CONFIG12, surrogate_method_kwargs=dict(CONFIG12_SMK),
+              random_seed=seed_base + i)
+    kw.update(over)
+    return svc.submit(zdt1, {f"x{j}": [0.0, 1.0] for j in range(dim)}, ["f1", "f2"],
+                      opt_id=f"tg_{T}_{i}", torch_objective=True, **kw)
+
+
+def _service_run(torch, V, T, scheduler, telemetry=False, **svc_kw):
+    """One Config 12 service run on the card, the launch counts reset
+    just before `run()` and read just after: (wall, launches, {opt_id:
+    fronts}, introspect snapshot, telemetry)."""
+    from dmosopt_tpu_torch.service import OptimizationService
+
+    svc = OptimizationService(min_bucket=2, scheduler=scheduler, telemetry=telemetry,
+                              device="cuda", **svc_kw)
+    handles = [_service_submit(svc, T, i) for i in range(T)]
+    torch.cuda.synchronize()
+    V.reset_kernel_launches()
+    t0 = time.perf_counter()
+    svc.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(V.KERNEL_LAUNCHES)
+    fronts = {h.opt_id: h.updates() for h in handles}
+    for h in handles:
+        assert h.done and h.error is None, (h.opt_id, h.error)
+    snap = svc.introspect()
+    tel = svc.telemetry
+    svc.close()
+    return wall, launches, fronts, snap, tel
+
+
+def _check_fronts(fronts, n_epochs, label):
+    """Every tenant streamed one front an epoch, each finite and
+    non-dominated."""
+    import numpy as np
+
+    for opt_id, ups in fronts.items():
+        assert [u.epoch for u in ups] == list(range(n_epochs)), (label, opt_id)
+        for u in ups:
+            assert u.x.shape[0] == u.y.shape[0] > 0, (label, opt_id, u.epoch)
+            assert np.all(np.isfinite(u.x)) and np.all(np.isfinite(u.y)), (label, opt_id)
+            assert _non_dominated(u.y), (label, opt_id, u.epoch, "dominated front")
+
+
+def _front_agreement(a, b, opt_ids):
+    """(all bitwise, worst relative difference) of the tenants' last
+    fronts; raises when a pair differs in shape or beyond FRONT_RTOL."""
+    import numpy as np
+
+    bitwise, worst = True, 0.0
+    for k in opt_ids:
+        ua, ub = a[k][-1], b[k][-1]
+        for xa, xb in ((ua.x, ub.x), (ua.y, ub.y)):
+            assert xa.shape == xb.shape, (k, xa.shape, xb.shape)
+            bitwise = bitwise and np.array_equal(xa, xb)
+            rel = np.abs(xa - xb) / np.maximum(np.abs(xb), 1e-30)
+            worst = max(worst, float(rel.max()) if rel.size else 0.0)
+    assert worst <= FRONT_RTOL, ("fronts differ", worst)
+    return bitwise, worst
+
+
+def config12(torch, V, smi):
+    """Phase 15 (a): bench.py Config 12, lockstep against the scheduler
+    at T = 16 and 64, interleaved, best of 2. Returns the launches of
+    each mode's last run at each T and the T = 16 scheduler fronts."""
+    from dmosopt_tpu_torch.parallel.taskgraph import resolve_concurrency
+
+    launches, ref16 = {}, None
+    for T in CONFIG12_TENANTS:
+        walls = {"lockstep": [], "scheduler": []}
+        fronts, snaps = {}, {}
+        for _rep in range(2):
+            for mode, sched in (("lockstep", None), ("scheduler", True)):
+                wall, counts, fr, snap, _ = _service_run(torch, V, T, sched)
+                assert counts == {"offspring": CONFIG12_LAUNCHES, "sbx": 0,
+                                  "mutation": 0}, (T, mode, counts)
+                assert snap["tenant_counts"] == {"completed": T}, (T, mode, snap["tenant_counts"])
+                _check_fronts(fr, CONFIG12["n_epochs"], f"config 12 T={T} {mode}")
+                walls[mode].append(wall)
+                fronts[mode], snaps[mode] = fr, snap
+                launches[f"config12_T{T}_{mode}"] = counts
+        bitwise, worst = _front_agreement(fronts["scheduler"], fronts["lockstep"],
+                                          sorted(fronts["lockstep"]))
+        lock, sched = min(walls["lockstep"]), min(walls["scheduler"])
+        nodes = snaps["scheduler"]["scheduler"]["last_graph"]["nodes"]
+        kinds = {}
+        for n in nodes:
+            kinds[n["kind"]] = kinds.get(n["kind"], 0) + 1
+        assert kinds.get("bucket") == len(CONFIG12_DIMS), kinds
+        print(f"[{smi}] config 12 T={T}: lockstep {lock:.3f} s "
+              f"({', '.join(f'{w:.3f}' for w in walls['lockstep'])}), scheduler "
+              f"{sched:.3f} s ({', '.join(f'{w:.3f}' for w in walls['scheduler'])}) at "
+              f"concurrency {resolve_concurrency(True)}; scheduler_speedup "
+              f"{lock / sched:.3f}; graph nodes at the last step {len(nodes)} {kinds}; "
+              f"offspring launches {CONFIG12_LAUNCHES} a run (4 buckets x 2 epochs x 8 "
+              f"generations); last fronts {'bitwise equal' if bitwise else 'equal'} "
+              f"(worst relative difference {worst:.3e})")
+        if T == 16:
+            ref16 = fronts["scheduler"]
+    return launches, ref16
+
+
+def _warm_profiler(torch):
+    """Start and stop torch.profiler once on the card: the first start in
+    a process costs seconds that are not the captured step's."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        (torch.ones(64, device="cuda") * 2.0).sum().item()
+    torch.cuda.synchronize()
+
+
+def config12_device(torch, V, smi, profile_dir):
+    """Phase 15 (b): one capture of step 1 (epoch 1) at T = 64 in each
+    mode. Every bucket's gp_fit and ea_scan rows must join their
+    annotation windows with device time above 0 (under the scheduler the
+    spans open on worker threads). Prints each mode's busy fraction and
+    their ratio, ungated."""
+    from dmosopt_tpu_torch.tenants import bucket_label
+
+    _warm_profiler(torch)
+    T = max(CONFIG12_TENANTS)
+    labels = [bucket_label(d, 2, CONFIG12["population_size"]) for d in CONFIG12_DIMS]
+    busy, launches = {}, {}
+    for mode, sched in (("lockstep", None), ("scheduler", True)):
+        sub = os.path.join(profile_dir, mode)
+        wall, counts, fronts, snap, tel = _service_run(
+            torch, V, T, sched, telemetry={"profile_dir": sub, "profile_epochs": [1]})
+        assert counts == {"offspring": CONFIG12_LAUNCHES, "sbx": 0, "mutation": 0}, counts
+        _check_fronts(fronts, CONFIG12["n_epochs"], f"config 12 capture {mode}")
+        assert tel.ledger.captures == 1, tel.ledger.captures
+        cap = tel.ledger.last_capture
+        rows = _captured_rows(tel, f"config 12 T={T} {mode} step 1")
+        for label in labels:
+            for name in TRACED_ROWS:
+                row = rows.get((name, label))
+                assert row is not None and row.n_joined >= 1, (mode, name, label, row)
+                assert row.device_time_s > 0.0, (mode, name, label, row)
+        assert cap.device_busy_fraction is not None and 0.0 < cap.device_busy_fraction <= 1.0
+        busy[mode] = cap.device_busy_fraction
+        launches[f"config12_capture_{mode}"] = counts
+        print(f"[{smi}] config 12 T={T} {mode} with a capture of step 1: wall {wall:.3f} s, "
+              f"device_busy_fraction {cap.device_busy_fraction:.4f}, window "
+              f"{cap.window_s:.3f} s, device busy {cap.device_busy_s:.4f} s, "
+              f"{cap.n_joined}/{cap.n_spans} spans joined")
+    print(f"[{smi}] config 12 T={T}: device_busy_fraction scheduler/lockstep "
+          f"{busy['scheduler'] / busy['lockstep']:.4f}")
+    return launches
+
+
+def _scrape(port, path):
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=10)
+    try:
+        conn.request("GET", path)
+        resp = conn.getresponse()
+        return resp.status, resp.read().decode()
+    finally:
+        conn.close()
+
+
+def service_faults(torch, V, smi, ref):
+    """Phase 15 (c) and (d): Config 12 at T = 16 under the scheduler with
+    a fault plan, through `FaultyEvaluator` over `TorchBatchEvaluator` on
+    the card, under a skipping policy with retries; the clean buckets'
+    tenants equal the fault-free scheduler run's (``ref``) within
+    FRONT_RTOL; the faulty tenants report what the policy says. The same
+    service serves /metrics, scraped once after its first step and held
+    to the registry's snapshot, and /healthz; close() joins its thread."""
+    import numpy as np
+
+    from dmosopt_tpu_torch.service import EvalPolicy, OptimizationService
+    from dmosopt_tpu_torch.telemetry.exposition import parse_openmetrics, samples_as_snapshot
+
+    T = 16
+    plan = {"seed": 11, "rules": [
+        *({"kind": "raise", "target": t, "count": 1} for t in FAULT_RAISE),
+        {"kind": "nan", "target": FAULT_NAN[0], "count": FAULT_NAN[1]}]}
+    os.environ["DMOSOPT_FAULT_PLAN"] = json.dumps(plan)
+    try:
+        svc = OptimizationService(
+            min_bucket=2, scheduler=True, device="cuda", exporter=True,
+            eval_policy=EvalPolicy(retries=2, on_eval_failure="skip"),
+        )
+    finally:
+        del os.environ["DMOSOPT_FAULT_PLAN"]
+    handles = [_service_submit(svc, T, i) for i in range(T)]
+    assert type(svc._pending[0].evaluator).__name__ == "FaultyEvaluator"
+    port, thread = svc.exporter.port, svc.exporter._thread
+    torch.cuda.synchronize()
+    V.reset_kernel_launches()
+    t0 = time.perf_counter()
+    svc.step()
+    status, body = _scrape(port, "/metrics")
+    snap_reg = svc.telemetry.registry.snapshot()
+    assert status == 200, status
+    back = samples_as_snapshot(parse_openmetrics(body))
+    n_series = 0
+    for name, series in snap_reg["counters"].items():
+        family = name[: -len("_total")] if name.endswith("_total") else name
+        assert back["counters"][family] == series, name
+        n_series += len(series)
+    assert back["gauges"] == snap_reg["gauges"]
+    n_series += sum(len(s) for s in snap_reg["gauges"].values())
+    hz_status, hz_body = _scrape(port, "/healthz")
+    assert hz_status in (200, 503) and "status" in json.loads(hz_body), (hz_status, hz_body)
+    svc.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(V.KERNEL_LAUNCHES)
+    fronts = {h.opt_id: h.updates() for h in handles}
+    snap = svc.introspect()
+    reg = svc.telemetry.registry
+    svc.close()
+    assert svc.exporter is None and not thread.is_alive(), "exporter thread left running"
+
+    assert launches == {"offspring": CONFIG12_LAUNCHES, "sbx": 0, "mutation": 0}, launches
+    assert snap["tenant_counts"] == {"completed": T}, snap["tenant_counts"]
+    by_id = {t["opt_id"]: t for t in snap["tenants"]}
+    for t in FAULT_RAISE:
+        # a torch batch fails at the result layer, where no attempt is
+        # retried: the point is skipped and the tenant goes on degraded
+        assert by_id[t].get("degraded") is True and by_id[t]["eval_failures_total"] == 1, by_id[t]
+        assert reg.counter_value("tenant_eval_failures_total", tenant=t) == 1.0
+    nan_t, nan_n = FAULT_NAN
+    assert by_id[nan_t]["points_quarantined_total"] == nan_n, by_id[nan_t]
+    faulty = set(FAULT_RAISE) | {nan_t}
+    _check_fronts(fronts, CONFIG12["n_epochs"], "faults")
+    clean = sorted(k for k in fronts
+                   if int(k.rsplit("_", 1)[1]) % len(CONFIG12_DIMS) != 0)
+    bitwise, worst = _front_agreement(fronts, ref, clean)
+    mate = FAULT_BUCKET_MATE
+    mate_equal = (np.array_equal(fronts[mate][-1].x, ref[mate][-1].x)
+                  and np.array_equal(fronts[mate][-1].y, ref[mate][-1].y))
+    print(f"[{smi}] config 12 T={T} scheduler with faults: wall {wall:.3f} s; "
+          f"{sorted(faulty)} report "
+          + ", ".join(f"{t}: degraded {by_id[t].get('degraded')}, failures "
+                      f"{by_id[t].get('eval_failures_total', 0)}, quarantined "
+                      f"{by_id[t].get('points_quarantined_total', 0)}" for t in sorted(faulty))
+          + f"; the {len(clean)} tenants of the clean buckets' last fronts "
+          f"{'bitwise equal' if bitwise else 'equal'} to the fault-free run's (worst "
+          f"relative difference {worst:.3e}); the faulty bucket's mate {FAULT_BUCKET_MATE} "
+          f"{'bitwise equal' if mate_equal else 'differs (its bucket fit shares one convergence stop)'}")
+    print(f"[{smi}] exporter: /metrics scraped after step 1, {n_series} counter and gauge "
+          f"series equal to the registry's; /healthz {hz_status} "
+          f"{json.loads(hz_body).get('status')}; thread joined on close")
+    return launches
+
+
+def service_wide(torch, V, smi):
+    """Phase 15 (e): 16 tenants at the quick start's width (ZDT1 dim 30,
+    pop 200, 100 generations, 2 epochs, `gpr` defaults) in one bucket
+    under the scheduler: one fused launch a generation for the bucket."""
+    from dmosopt_tpu_torch.benchmarks.zdt import zdt1
+    from dmosopt_tpu_torch.service import OptimizationService
+
+    T, dim, gens, n_epochs = WIDE_TENANTS, 30, 100, WIDE_EPOCHS
+    svc = OptimizationService(min_bucket=2, scheduler=True, device="cuda")
+    handles = [
+        svc.submit(zdt1, {f"x{j}": [0.0, 1.0] for j in range(dim)}, ["f1", "f2"],
+                   opt_id=f"wide_{i}", torch_objective=True, n_epochs=n_epochs,
+                   population_size=200, num_generations=gens, n_initial=3,
+                   surrogate_method_kwargs={}, random_seed=i)
+        for i in range(T)
+    ]
+    torch.cuda.synchronize()
+    V.reset_kernel_launches()
+    t0 = time.perf_counter()
+    svc.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(V.KERNEL_LAUNCHES)
+    reg = svc.telemetry.registry
+    fronts = {h.opt_id: h.updates() for h in handles}
+    assert all(h.done and h.error is None for h in handles)
+    svc.close()
+    assert launches == {"offspring": n_epochs * gens, "sbx": 0, "mutation": 0}, launches
+    assert reg.counter_value("tenants_batched_total") == T * n_epochs
+    _check_fronts(fronts, n_epochs, "wide service")
+    print(f"[{smi}] service, 16 tenants at the quick start's width in one bucket under "
+          f"the scheduler, {n_epochs} epochs: {wall:.3f} s, offspring launches "
+          f"{launches['offspring']} ({launches['offspring'] // (n_epochs * gens)} a "
+          f"generation); phase 13 (b) runs the same through run()")
+    return launches
+
+
+def service_phase(torch, V, smi):
+    """Phase 15: the ask/tell service on the card. Returns each run's
+    launches."""
+    import tempfile
+
+    launches, ref16 = config12(torch, V, smi)
+    with tempfile.TemporaryDirectory() as profile_dir:
+        launches.update(config12_device(torch, V, smi, profile_dir))
+    launches["faults_T16"] = service_faults(torch, V, smi, ref16)
+    launches["wide16"] = service_wide(torch, V, smi)
+    return launches
+
+
 def _requested_phases(argv):
     """The phases of ``--phases 2,9,10``, or None for the whole script."""
     if not argv:
@@ -2660,7 +3029,8 @@ def main() -> int:
         runs = {2: check_kernels, 3: direct_ea, 4: quick_start, 5: file_backed,
                 6: many_objective, 7: lorenz_run, 8: config5_loop,
                 9: constrained_run, 10: sa_run, 11: reusing_surrogate,
-                12: sparse_surrogates, 13: tenant_core, 14: telemetry_phase}
+                12: sparse_surrogates, 13: tenant_core, 14: telemetry_phase,
+                15: service_phase}
         for p in sorted(phases):
             t0 = time.perf_counter()
             fn = runs[p]
@@ -2693,9 +3063,12 @@ def main() -> int:
     t7 = time.perf_counter()
     launches_telemetry = telemetry_phase(torch, V, smi)
     t8 = time.perf_counter()
+    launches_service = service_phase(torch, V, smi)
+    t9 = time.perf_counter()
     print(f"[{smi}] phase 7 {t1 - t0:.1f} s, phase 8 {t2 - t1:.1f} s, phase 9 "
           f"{t3 - t2:.1f} s, phase 10 {t4 - t3:.1f} s, phase 11 {t5 - t4:.1f} s, "
-          f"phase 12 {t6 - t5:.1f} s, phase 13 {t7 - t6:.1f} s, phase 14 {t8 - t7:.1f} s")
+          f"phase 12 {t6 - t5:.1f} s, phase 13 {t7 - t6:.1f} s, phase 14 {t8 - t7:.1f} s, "
+          f"phase 15 {t9 - t8:.1f} s")
     assert "jax" not in sys.modules and "dmosopt_tpu" not in sys.modules
 
     kernels = []
@@ -2718,6 +3091,7 @@ def main() -> int:
             "launches_sparse_runs": {m: n[name] for m, n in launches_sparse.items()},
             "launches_tenant_runs": {m: n[name] for m, n in launches_tenants.items()},
             "launches_telemetry_runs": {m: n[name] for m, n in launches_telemetry.items()},
+            "launches_service_runs": {m: n[name] for m, n in launches_service.items()},
             "max_abs_err": max(r["max_abs_err"] for r in rep["rows"].values()),
             "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
             "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],

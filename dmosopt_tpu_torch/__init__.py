@@ -9,7 +9,12 @@ on a thread pool under the JAX package's pipeline modes, and the HDF5
 store it saves to and resumes from (`dmosopt_tpu_torch.storage`), with
 the JAX package's telemetry on by default (`dmosopt_tpu_torch.telemetry`:
 metrics, events, spans, health rules, and a device ledger read from
-``torch.profiler`` captures). It imports neither jax nor dmosopt_tpu.
+``torch.profiler`` captures). `OptimizationService` is the ask/tell
+front over the same machinery: callers submit problems at any time and
+each `step()` advances every tenant one epoch, bucket-mates sharing one
+fit and one EA, lockstep or as a task graph, with per-tenant fault
+policies, atomic checkpoints and an optional OpenMetrics exporter. It
+imports neither jax nor dmosopt_tpu.
 """
 
 __version__ = "0.1.0"
@@ -36,6 +41,10 @@ def __getattr__(name):
         from dmosopt_tpu_torch import driver
 
         return getattr(driver, name)
+    if name in ("OptimizationService", "EvalPolicy", "TenantHandle"):
+        from dmosopt_tpu_torch import service
+
+        return getattr(service, name)
     if name == "DistOptStrategy":
         from dmosopt_tpu_torch.strategy import DistOptStrategy
 

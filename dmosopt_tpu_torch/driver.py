@@ -58,8 +58,8 @@ evaluated and, with ``save``, the epoch's summary, spans and alert
 transitions go into the store's ``telemetry``, ``telemetry_spans`` and
 ``telemetry_alerts`` groups in the JAX package's schema. The driver
 options of the JAX package that this port does not carry yet raise
-`NotImplementedError` instead of being ignored: ``jax_objective``,
-meshes and ``stats_per_problem`` other than "auto".
+`NotImplementedError` instead of being ignored: ``jax_objective`` and
+meshes.
 """
 
 from __future__ import annotations
@@ -195,9 +195,8 @@ class _InflightBatch:
 
 
 # driver options of the JAX package that are not ported, with the value
-# that means "not used" (``stats_per_problem`` True/False overrides the
-# per-problem stats guard the port applies as "auto")
-_UNPORTED_DEFAULTS = {"jax_objective": False, "mesh": None, "stats_per_problem": "auto"}
+# that means "not used"
+_UNPORTED_DEFAULTS = {"jax_objective": False, "mesh": None}
 # keyword arguments of the reference's distwq `run()` that the JAX
 # package's `run()` accepts and ignores (dmosopt_tpu/driver.py:1600-1602)
 _LEGACY_RUN_KWARGS = ("spawn_workers", "nprocs_per_worker")
@@ -233,7 +232,8 @@ class DistOptimizer:
         save_surrogate_evals=False, save_optimizer_params=True,
         metadata=None,
         torch_objective=False, evaluator=None, n_eval_workers=1, pipeline=None,
-        tenant_batching=False, min_tenant_bucket=2, device=None, verbose=False,
+        tenant_batching=False, min_tenant_bucket=2, stats_per_problem="auto",
+        device=None, verbose=False,
         **kwargs,
     ) -> None:
         """MO-ASMO optimization driver (reference dmosopt/dmosopt.py:546-630).
@@ -276,6 +276,10 @@ class DistOptimizer:
         tenant_batching, min_tenant_bucket: with several problems, run
           each bucket of at least ``min_tenant_bucket`` problems through
           the batched tenant core (`tenants.py`).
+        stats_per_problem: how `get_stats` reports several problems:
+          "auto" keeps each problem's keys up to
+          `_STATS_PER_PROBLEM_LIMIT` problems and aggregates beyond,
+          True always keeps them, False always aggregates.
         dynamic_initial_sampling: import path of an epoch-0 sampler,
           called with ``file_path``, ``iteration``, ``evaluated_samples``,
           ``next_samples``, ``sampler`` and ``dynamic_initial_sampling_kwargs``;
@@ -306,6 +310,12 @@ class DistOptimizer:
                 "(surrogate_method_name=None evaluates whole generations "
                 "whose results must stay row-aligned)"
             )
+        if stats_per_problem not in ("auto", True, False):
+            raise ValueError(
+                f"stats_per_problem must be 'auto', True, or False; "
+                f"got {stats_per_problem!r}"
+            )
+        self.stats_per_problem = stats_per_problem
         if random_seed is not None:
             if local_random is not None:
                 raise RuntimeError("pass either random_seed or local_random, not both")
@@ -540,13 +550,17 @@ class DistOptimizer:
     def get_stats(self):
         """The driver's and the strategies' stats, with paired
         `<phase>_start`/`<phase>_end` timestamps collapsed into one
-        `<phase>` duration (``dmosopt_tpu/driver.py:643-689``, its
-        ``stats_per_problem="auto"``). One problem keeps unprefixed keys;
-        several prefix every problem's with its id, or, past
-        `_STATS_PER_PROBLEM_LIMIT` problems, give each numeric key K as
-        ``K_mean`` over the problems with ``stats_n_problems``."""
+        `<phase>` duration (``dmosopt_tpu/driver.py:643-689``). One
+        problem keeps unprefixed keys; several prefix every problem's
+        with its id, or, when ``stats_per_problem`` says to aggregate
+        (False, or "auto" past `_STATS_PER_PROBLEM_LIMIT` problems), give
+        each numeric key K as ``K_mean`` over the problems with
+        ``stats_n_problems``."""
         multi = len(self.problem_ids) > 1
-        if len(self.problem_ids) > self._STATS_PER_PROBLEM_LIMIT:
+        per_problem = self.stats_per_problem
+        if per_problem == "auto":
+            per_problem = len(self.problem_ids) <= self._STATS_PER_PROBLEM_LIMIT
+        if multi and not per_problem:
             sums, counts, n_reporting = {}, {}, 0
             for pid in self.problem_ids:
                 strategy = self.optimizer_dict.get(pid)

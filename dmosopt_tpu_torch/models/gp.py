@@ -940,8 +940,9 @@ class GPR_Matern(SurrogateMixin):
     hyperparameters from batched multi-start Adam (from ``warm_start``
     when given), predictions through the ``predictor`` regime.
     ``dtype="float64"`` gives float64 tensors, no relative jitter.
-    ``device`` None means CUDA. Meshes (``mesh``, ``surrogate_mesh``) and
-    other optimizers raise `NotImplementedError`."""
+    ``device`` None means CUDA. Meshes (``mesh``, ``surrogate_mesh``)
+    raise `NotImplementedError`; ``optimizer`` is accepted and ignored,
+    as the JAX package ignores it."""
 
     kernel = "matern52"
     anisotropic_default = False
@@ -982,10 +983,11 @@ class GPR_Matern(SurrogateMixin):
         device=None,
         **kwargs,
     ):
+        # ``optimizer`` is taken and never read, as in the JAX package:
+        # every fit runs Adam
         unported = {
             "mesh": mesh is not None,
             "surrogate_mesh": surrogate_mesh not in (None, False),
-            "optimizer": optimizer != "adam",
         }
         bad = sorted(k for k, v in unported.items() if v)
         if bad:

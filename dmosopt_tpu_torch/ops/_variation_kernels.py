@@ -69,12 +69,15 @@ compile cache goes to ``dmosopt_tpu_torch/_build/triton`` unless
 runs from its own sources.
 
 `KERNEL_LAUNCHES` counts each kernel's launches: a `launch_*` adds one
-right after it queues its kernel, and nowhere else.
+(`_count_launch`, under a lock, since the service's scheduler launches
+from worker threads) right after it queues its kernel, and nowhere
+else.
 """
 
 from __future__ import annotations
 
 import os
+import threading
 
 import torch
 
@@ -84,14 +87,30 @@ NUM_WARPS = 4
 OFFSPRING_TILE = 512
 _KERNELS = None
 KERNEL_LAUNCHES = {"mutation": 0, "sbx": 0, "offspring": 0}
+# the service's scheduler launches from several worker threads at once:
+# one lock guards the counts, another the one-time definition
+_COUNT_LOCK = threading.Lock()
+_BUILD_LOCK = threading.Lock()
+
+
+def _count_launch(name: str) -> None:
+    """Add one launch of kernel ``name`` to `KERNEL_LAUNCHES`."""
+    with _COUNT_LOCK:
+        KERNEL_LAUNCHES[name] += 1
 
 
 def _build():
-    """Define (once per process) the jitted kernels; triton compiles each
-    at its first launch."""
+    """The jitted kernels, defined once per process; triton compiles
+    each at its first launch."""
     global _KERNELS
-    if _KERNELS is not None:
-        return _KERNELS
+    if _KERNELS is None:
+        with _BUILD_LOCK:
+            if _KERNELS is None:
+                _KERNELS = _define_kernels()
+    return _KERNELS
+
+
+def _define_kernels():
     os.environ.setdefault(
         "TRITON_CACHE_DIR",
         os.path.join(os.path.dirname(os.path.dirname(__file__)), "_build", "triton"),
@@ -237,8 +256,7 @@ def _build():
         tl.store(out_ptr + g, o1, mask=m)
         tl.store(out_ptr + s_out + g, o2, mask=m)
 
-    _KERNELS = (triton.cdiv, mutation_kernel, sbx_kernel, offspring_kernel)
-    return _KERNELS
+    return (triton.cdiv, mutation_kernel, sbx_kernel, offspring_kernel)
 
 
 def _check(name, t, shape=None, ndim=None):
@@ -271,7 +289,7 @@ def launch_mutation(u, parents, di, xlb, xub, mutation_rate):
             total, n, di.stride(0), xlb.stride(0), xub.stride(0),
             BLOCK=BLOCK, num_warps=NUM_WARPS,
         )
-        KERNEL_LAUNCHES["mutation"] += 1
+        _count_launch("mutation")
     return out
 
 
@@ -297,7 +315,7 @@ def launch_sbx(u, parents1, parents2, di, xlb, xub):
             total, n, di.stride(0), xlb.stride(0), xub.stride(0),
             BLOCK=BLOCK, num_warps=NUM_WARPS,
         )
-        KERNEL_LAUNCHES["sbx"] += 1
+        _count_launch("sbx")
     return c1, c2
 
 
@@ -380,7 +398,7 @@ def launch_offspring(
             xub.stride(0), BLOCK_P=block_p, BLOCK_N=block_n, BUCKET=not single,
             num_warps=NUM_WARPS,
         )
-        KERNEL_LAUNCHES["offspring"] += 1
+        _count_launch("offspring")
     if single:
         out, is_x = out[0], is_x[0]
     return out, is_x.view(torch.bool)

@@ -136,6 +136,7 @@ class BackgroundWriter:
         self._error: Optional[BaseException] = None
         self._failed = False  # error already surfaced; writer is dead
         self._closed = False
+        self.retries_total = 0
         self._thread = threading.Thread(
             target=self._run, name="dmosopt-writer", daemon=True
         )
@@ -161,6 +162,7 @@ class BackgroundWriter:
                     return
                 delay = jittered_backoff(attempt, self.BACKOFF, self.BACKOFF_CAP)
                 attempt += 1
+                self.retries_total += 1
                 if self.telemetry:
                     self.telemetry.inc("writer_retries_total")
                 time.sleep(delay)
@@ -193,6 +195,17 @@ class BackgroundWriter:
             raise RuntimeError(
                 "background persistence writer is dead after an earlier write failure"
             )
+
+    @property
+    def queue_depth(self) -> int:
+        return self._q.qsize()
+
+    @property
+    def writer_failed(self) -> bool:
+        """True once a write has terminally failed, whether or not its
+        error has been re-raised to a caller yet."""
+        with self._state_lock:
+            return self._failed or self._error is not None
 
     def submit(self, fn, *args, **kwargs) -> None:
         if self._closed:

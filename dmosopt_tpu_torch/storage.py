@@ -28,8 +28,16 @@ Layout:
     /{opt_id}/telemetry.attrs[{epoch}]               (json epoch summary)
     /{opt_id}/telemetry_spans/{epoch}                (json string dataset)
     /{opt_id}/telemetry_alerts/{epoch}               (json string dataset)
+    /{opt_id}/fronts/{epoch}/x|y                     (a service tenant's front)
 
-Not ported yet: the fronts and the service checkpoint.
+The ask/tell service's checkpoint is a file of its own, rewritten whole
+at every epoch boundary (write a temporary file, then rename):
+    attrs format="dmosopt_tpu.service_checkpoint", version, service(json)
+    /tenants/{key}.attrs config(json), state(json)
+    /tenants/{key}/x, y, f, c, t, pending_x, pending_pred,
+                   pending_has_pred, pending_epoch   [each optional]
+Its ``service`` attribute carries an ownership lease (``owner``,
+``placement_epoch``) that `claim_service_checkpoint` transfers.
 """
 
 from __future__ import annotations
@@ -399,6 +407,193 @@ def load_refit_state_from_h5(fpath, opt_id, problem_id) -> Optional[Dict]:
             return None
         return _load_json_attr(h5[key], "surrogate_refit")
 
+
+def save_front_to_h5(
+    opt_id, epoch, param_names, objective_names, x, y, fpath, logger=None
+):
+    """Persist one tenant's per-epoch non-dominated front — the
+    streaming artifact of the ask/tell service (dmosopt_tpu.service):
+    `/{opt_id}/fronts/{epoch}/x|y` plus column-name attrs. Latest epoch
+    wins on re-write (a resumed tenant re-streams its current front)."""
+    h5py = _require_h5py()
+    x = np.asarray(x, dtype=np.float32)
+    y = np.asarray(y, dtype=np.float32)
+    with h5py.File(fpath, "a") as h5:
+        grp = h5_get_group(h5, f"{opt_id}/fronts/{int(epoch)}")
+        for name, arr in (("x", x), ("y", y)):
+            if name in grp:
+                del grp[name]
+            grp.create_dataset(name, data=arr)
+        grp.attrs["param_names"] = json.dumps(
+            list(param_names), default=json_default
+        )
+        grp.attrs["objective_names"] = json.dumps(
+            list(objective_names), default=json_default
+        )
+    if logger is not None:
+        logger.info(
+            f"save_front_to_h5: {opt_id} epoch {epoch}: "
+            f"{x.shape[0]} front points"
+        )
+
+
+def load_fronts_from_h5(fpath, opt_id):
+    """Read back every epoch front `save_front_to_h5` stored for
+    `opt_id`, as {epoch: (x, y)} ascending by epoch."""
+    h5py = _require_h5py()
+    out = {}
+    with h5py.File(fpath, "r") as h5:
+        grp = h5.get(f"{opt_id}/fronts")
+        if grp is None:
+            return out
+        for name in grp:
+            g = grp[name]
+            out[int(name)] = (np.asarray(g["x"][:]), np.asarray(g["y"][:]))
+    return dict(sorted(out.items()))
+
+
+# --------------------------------------------------- service checkpointing
+
+#: bumped when the checkpoint layout changes incompatibly (v2: the
+#: ownership lease, ``service.owner`` + ``service.placement_epoch``)
+SERVICE_CHECKPOINT_VERSION = 2
+
+#: per-tenant array columns a service checkpoint may carry
+_CHECKPOINT_ARRAYS = (
+    "x", "y", "f", "c", "t",
+    "pending_x", "pending_pred", "pending_has_pred", "pending_epoch",
+)
+
+
+def save_service_checkpoint_to_h5(payload: Dict, fpath, logger=None):
+    """Atomically persist one full service-state snapshot.
+
+    ``payload`` is the dict `OptimizationService._checkpoint_payload`
+    builds: ``{"service": json-able dict, "tenants": {key: {"config":
+    json-able, "state": json-able, "arrays": {name: ndarray|None}}}}``.
+
+    Crash safety is write-temp-rename: the whole snapshot is written to
+    ``fpath + ".tmp"`` and `os.replace`d over the previous one, so a
+    reader (or a resume after kill -9) only ever sees a complete
+    checkpoint — the last fully written epoch boundary, never a torn
+    file. The snapshot is rewritten in full each time (state, not an
+    append log), which is what makes the rename atomic swap valid.
+    """
+    import os
+
+    h5py = _require_h5py()
+    tmp = fpath + ".tmp"
+    with h5py.File(tmp, "w") as h5:
+        h5.attrs["format"] = "dmosopt_tpu.service_checkpoint"
+        h5.attrs["version"] = SERVICE_CHECKPOINT_VERSION
+        _json_attr(h5, "service", payload.get("service", {}))
+        tg = h5.create_group("tenants")
+        for key, tp in payload["tenants"].items():
+            g = tg.create_group(str(key))
+            _json_attr(g, "config", tp["config"])
+            _json_attr(g, "state", tp["state"])
+            for name in _CHECKPOINT_ARRAYS:
+                arr = tp.get("arrays", {}).get(name)
+                if arr is not None:
+                    g.create_dataset(name, data=np.asarray(arr))
+    os.replace(tmp, fpath)
+    if logger is not None:
+        logger.info(
+            f"service checkpoint: {len(payload['tenants'])} tenant(s) "
+            f"-> {fpath}"
+        )
+
+
+class CheckpointLeaseError(RuntimeError):
+    """A service checkpoint's ownership lease refused a claim: the
+    stored owner is not the expected one (someone else already adopted
+    these tenants) or the stored placement epoch is not older than the
+    claimant's (a stale fencing token). Raised instead of adopting, so
+    two workers can never own the same tenant."""
+
+
+def claim_service_checkpoint(
+    fpath,
+    expected_owner: Optional[str],
+    new_owner: Optional[str],
+    placement_epoch: int,
+    logger=None,
+) -> Dict:
+    """Atomically (within one HDF5 open) transfer a checkpoint's
+    ownership lease to ``new_owner`` at ``placement_epoch`` — the
+    double-adoption guard of fleet tenant migration.
+
+    The claim succeeds only when the stored ``service.owner`` equals
+    ``expected_owner`` (the worker the supervisor declared dead) AND
+    the stored ``service.placement_epoch`` is strictly older than the
+    claimant's ``placement_epoch`` (the supervisor's monotonically
+    increasing fencing token). On success the service attribute is
+    rewritten in place with the new owner/epoch plus a
+    ``claimed_from`` trail, so any later claimant — a second survivor
+    handed the same migration order, a partitioned supervisor retrying
+    — reads the new owner, fails the expected-owner check, and raises
+    `CheckpointLeaseError` instead of adopting the same tenants twice.
+    Returns the stored service metadata as it was BEFORE the claim."""
+    h5py = _require_h5py()
+    with h5py.File(fpath, "r+") as h5:
+        fmt = h5.attrs.get("format")
+        if fmt != "dmosopt_tpu.service_checkpoint":
+            raise RuntimeError(
+                f"{fpath!r} is not a service checkpoint (format {fmt!r})"
+            )
+        svc = _load_json_attr(h5, "service", {})
+        stored_owner = svc.get("owner")
+        stored_epoch = int(svc.get("placement_epoch") or 0)
+        if expected_owner is not None and stored_owner != expected_owner:
+            raise CheckpointLeaseError(
+                f"checkpoint {fpath!r} is owned by {stored_owner!r}, not "
+                f"{expected_owner!r} — its tenants were already adopted "
+                f"(placement epoch {stored_epoch})"
+            )
+        if stored_epoch >= int(placement_epoch):
+            raise CheckpointLeaseError(
+                f"checkpoint {fpath!r} carries placement epoch "
+                f"{stored_epoch} >= claimant's {placement_epoch} — the "
+                f"claim's fencing token is stale"
+            )
+        before = dict(svc)
+        svc["owner"] = new_owner
+        svc["placement_epoch"] = int(placement_epoch)
+        svc["claimed_from"] = stored_owner
+        _json_attr(h5, "service", svc)
+    if logger is not None:
+        logger.info(
+            f"claimed service checkpoint {fpath}: {stored_owner!r} -> "
+            f"{new_owner!r} @ placement epoch {placement_epoch}"
+        )
+    return before
+
+
+def load_service_checkpoint_from_h5(fpath) -> Dict:
+    """Read back a `save_service_checkpoint_to_h5` snapshot as
+    ``{"service": dict, "tenants": {key: {"config", "state",
+    "arrays"}}}`` (arrays as numpy, absent columns as None)."""
+    h5py = _require_h5py()
+    out: Dict = {"service": {}, "tenants": {}}
+    with h5py.File(fpath, "r") as h5:
+        fmt = h5.attrs.get("format")
+        if fmt != "dmosopt_tpu.service_checkpoint":
+            raise RuntimeError(
+                f"{fpath!r} is not a service checkpoint (format {fmt!r})"
+            )
+        out["service"] = _load_json_attr(h5, "service", {})
+        out["version"] = int(h5.attrs.get("version", 0))
+        for key in h5["tenants"]:
+            g = h5["tenants"][key]
+            out["tenants"][key] = {
+                "config": _load_json_attr(g, "config"),
+                "state": _load_json_attr(g, "state"),
+                "arrays": {
+                    name: (np.asarray(g[name][()]) if name in g else None)
+                    for name in _CHECKPOINT_ARRAYS
+                },
+            }
+    return out
 
 
 def h5_load_raw(fpath, opt_id):

@@ -32,7 +32,9 @@ handed back through the problem's ``feature_constructor`` by
 fails at its first evaluation. ``surrogate_custom_training`` (an import
 path) and its kwargs pass through to every epoch. The problem-batched
 tenant core (`tenants.py`) opens an epoch with `open_epoch` and puts
-its result in place with `install_epoch_result` (``:417-470``).
+its result in place with `install_epoch_result` (``:417-470``). The
+ask/tell service checkpoints ``optimizer_draws`` (the optimizer-cycle
+draws taken) and asks `has_completed`.
 With a ``telemetry`` the initial design is an ``xinit`` phase (tagged
 ``xinit_epoch``, the run's first epoch, so a resumed run's summary keeps
 it), a quarantined row counts in ``points_quarantined_total``, and each
@@ -145,9 +147,16 @@ class DistOptStrategy:
             else {"crossover_prob": 0.9, "mutation_prob": 0.1}
         )
         self.optimizer_iter = itertools.cycle(range(len(self.optimizer_name)))
+        # draws taken from optimizer_iter: a service checkpoint stores the
+        # count and a resume replays it (``dmosopt_tpu/strategy.py:133``)
+        self.optimizer_draws = 0
         self.termination = self._build_termination(termination_conditions)
 
         self.completed = []
+        # per-evaluation wall times: the JAX package's column, which a
+        # service checkpoint carries; the port keeps the times in the
+        # driver's round statistics and leaves it None
+        self.t = None
         self.x = self.y = self.f = self.c = None
         if initial is not None:
             # (epochs, x, y, f, c) restored from the store
@@ -209,6 +218,9 @@ class DistOptStrategy:
 
     def get_next_request(self) -> Optional[EvalRequest]:
         return self.reqs.popleft() if self.reqs else None
+
+    def has_completed(self) -> bool:
+        return len(self.completed) > 0
 
     def complete_request(self, x, y, epoch=None, f=None, c=None, pred=None, time=-1.0):
         x, y = np.asarray(x), np.asarray(y)
@@ -322,6 +334,7 @@ class DistOptStrategy:
                 f"or one per optimizer"
             )
         idx = next(self.optimizer_iter)
+        self.optimizer_draws += 1
         merged = dict(self.optimizer_kwargs[idx % len(self.optimizer_kwargs)] or {})
         if self.distance_metric is not None:
             merged["distance_metric"] = self.distance_metric

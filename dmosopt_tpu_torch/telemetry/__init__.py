@@ -59,6 +59,19 @@ class DeviceCaptureError(RuntimeError):
     recorded no CUDA kernel event."""
 
 
+def _all_threads_config():
+    """The profiler option that records every thread's
+    ``record_function`` annotations, not only the capturing thread's:
+    the service's scheduler opens its buckets' ``gp_fit`` / ``ea_scan``
+    spans on worker threads. None where torch lacks the option."""
+    try:
+        from torch._C._profiler import _ExperimentalConfig
+
+        return _ExperimentalConfig(profile_all_threads=True)
+    except (ImportError, TypeError):
+        return None
+
+
 def _is_cuda(device) -> bool:
     if device is None:
         import torch
@@ -157,8 +170,9 @@ class Telemetry:
         start or the trace holds no CUDA kernel event. Python stacks,
         shapes and memory are not recorded. The trace is written to
         ``profile_dir`` (``epoch<E>_<time>.pt.trace.json``), joined to the
-        spans opened inside the region (each entered a same-named
-        ``record_function`` while the capture was armed), and its
+        spans opened inside the region on any thread (each entered a
+        same-named ``record_function`` while the capture was armed; the
+        profiler records every thread's annotations), and its
         ``device_busy_fraction`` and ``device_overlap_ratio`` gauges and
         per-tenant ``tenant_device_seconds`` are set. A ``device_capture``
         event carries the capture's summary, its device lane count and
@@ -179,7 +193,7 @@ class Telemetry:
         mark = self.tracer.mark() if self.tracer is not None else 0
         prof = profile(
             activities=activities, record_shapes=False, profile_memory=False,
-            with_stack=False,
+            with_stack=False, experimental_config=_all_threads_config(),
         )
         if cuda:
             torch.cuda.synchronize(device)

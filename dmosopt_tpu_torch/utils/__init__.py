@@ -1,7 +1,8 @@
 """Shared utilities.
 
 Port of ``dmosopt_tpu/utils/__init__.py`` (`json_default`,
-`jittered_backoff`). Import-light: nothing here imports torch.
+`import_object`, `jittered_backoff`). Import-light: nothing here imports
+torch.
 """
 
 
@@ -20,6 +21,25 @@ def json_default(o):
     raise TypeError(
         f"Object of type {type(o).__name__} is not JSON serializable"
     )
+
+
+def import_object(ref: str):
+    """Resolve a ``"package.module:attr"`` reference to the object it
+    names: the form in which a service checkpoint's ``objective_ref``
+    names an objective (a process that resumes it cannot receive a
+    closure; it receives a name it can import). The attr part may be
+    dotted (``mod:Class.method``)."""
+    module_name, sep, attr_path = ref.partition(":")
+    if not sep or not module_name or not attr_path:
+        raise ValueError(
+            f"object reference {ref!r} must look like 'package.module:attr'"
+        )
+    import importlib
+
+    obj = importlib.import_module(module_name)
+    for part in attr_path.split("."):
+        obj = getattr(obj, part)
+    return obj
 
 
 def jittered_backoff(attempt: int, base: float, cap: float) -> float:

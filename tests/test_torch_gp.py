@@ -19,7 +19,8 @@ steps), as do single-restart fits of `GPR_RBF`, `EGP_Matern` (ARD, the
 reference's ``adam_lr``) and `MEGP_Matern` (one shared ARD kernel,
 `fit_gp_shared`). A float64 fit (``dtype="float64"``, no relative
 jitter) predicts and reports its NMLL as a float64 numpy solve at its
-own hyperparameters does (rtol 1e-6).
+own hyperparameters does (rtol 1e-6). Both packages take an
+``optimizer`` kwarg and ignore it (every fit runs Adam).
 """
 
 import numpy as np
@@ -343,3 +344,22 @@ def test_float64_fit_against_a_numpy_oracle():
         nmll = (0.5 * Yn[:, i] @ alpha + 0.5 * np.linalg.slogdet(K)[1]
                 + 0.5 * len(X) * np.log(2 * np.pi))
         np.testing.assert_allclose(float(sm.fit.nmll[i]), nmll, rtol=1e-6)
+
+
+def test_optimizer_kwarg_is_taken_and_ignored_as_in_jax():
+    """A dmosopt configuration may name the fit's optimizer: the JAX
+    `GPR_Matern` takes ``optimizer`` and never reads it, so both packages
+    take the same kwargs, run Adam, and land on the same fit."""
+    X, Y = _data(N=30)
+    kw = dict(optimizer="lbfgs", n_starts=1, n_iter=40, convergence_tol=None, seed=0)
+    jm = JGP.GPR_Matern(X, Y, 3, 2, np.zeros(3), np.ones(3), **kw)
+    tm = TGP.GPR_Matern(X, Y, 3, 2, np.zeros(3), np.ones(3), device="cpu", **kw)
+    adam = TGP.GPR_Matern(X, Y, 3, 2, np.zeros(3), np.ones(3), device="cpu",
+                          **dict(kw, optimizer="adam"))
+    for field in ("amp", "ls", "noise", "nmll"):
+        np.testing.assert_array_equal(getattr(tm.fit, field).numpy(),
+                                      getattr(adam.fit, field).numpy())
+        np.testing.assert_allclose(
+            getattr(tm.fit, field).numpy(), np.asarray(getattr(jm.fit, field)),
+            rtol=1e-3, err_msg=field,
+        )

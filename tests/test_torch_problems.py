@@ -256,7 +256,11 @@ def test_pairwise_distances_match_jax():
 
 
 @pytest.mark.parametrize("option", [{"jax_objective": True}, {"mesh": object()},
-                                    {"stats_per_problem": False}])
+                                    {"jax_objective": True, "mesh": object()}])
 def test_options_not_ported_still_raise(option):
-    with pytest.raises(NotImplementedError):
+    # the error names every unported option it was given
+    # (``stats_per_problem`` is ported: tests/test_torch_run.py)
+    with pytest.raises(NotImplementedError) as err:
         port_driver.DistOptimizer(**_params("x", **option), device="cpu")
+    for name in option:
+        assert name in str(err.value)

@@ -120,12 +120,53 @@ def test_run_with_constraints_returns_feasible_points():
     assert c_all.shape == (x_all.shape[0], 1)
 
 
-@pytest.mark.parametrize(
-    "option", [{"stats_per_problem": True}, {"mesh": object()}, {"jax_objective": True}],
-)
+@pytest.mark.parametrize("option", [{"mesh": object()}, {"jax_objective": True}])
 def test_unported_driver_options_raise(option):
     with pytest.raises(NotImplementedError):
         dmosopt_tpu_torch.run(_params(**option), device="cpu", verbose=False)
+
+
+@pytest.mark.parametrize("per_problem", [True, False])
+def test_stats_per_problem_matches_jax(per_problem):
+    """``stats_per_problem`` True keeps each problem's keys, False
+    aggregates them into ``K_mean`` and ``stats_n_problems``: the port's
+    `get_stats` over a two-problem run's stats equals the JAX driver's
+    over the same stats (``dmosopt_tpu/driver.py:643-689``)."""
+    from types import SimpleNamespace
+
+    from dmosopt_tpu.driver import DistOptimizer as JaxDistOptimizer
+
+    opt_id = f"stats_per_problem_{per_problem}"
+    dmosopt_tpu_torch.run(
+        _params(opt_id=opt_id, obj_fun=_problems_zdt1, problem_ids={0, 1},
+                stats_per_problem=per_problem, n_epochs=1, num_generations=2,
+                n_initial=2, population_size=8),
+        device="cpu", verbose=False,
+    )
+    dopt = dopt_dict[opt_id]
+    assert dopt.stats_per_problem is per_problem
+
+    def twin(cls):
+        return SimpleNamespace(
+            problem_ids=set(dopt.problem_ids), stats=dict(dopt.stats),
+            optimizer_dict={pid: SimpleNamespace(stats=dict(s.stats))
+                            for pid, s in dopt.optimizer_dict.items()},
+            stats_per_problem=per_problem,
+            _STATS_PER_PROBLEM_LIMIT=cls._STATS_PER_PROBLEM_LIMIT,
+            _collapse_phase_pairs=cls._collapse_phase_pairs,
+        )
+
+    ported = type(dopt).get_stats(twin(type(dopt)))
+    assert ported == JaxDistOptimizer.get_stats(twin(JaxDistOptimizer))
+    if per_problem:
+        assert any(k.startswith("0_") for k in ported)
+        assert any(k.startswith("1_") for k in ported)
+    else:
+        assert ported["stats_n_problems"] == 2
+        assert any(k.endswith("_mean") for k in ported)
+    with pytest.raises(ValueError, match="stats_per_problem"):
+        dmosopt_tpu_torch.run(_params(stats_per_problem="sometimes"), device="cpu",
+                              verbose=False)
 
 
 def _problems_zdt1(mpp):

@@ -123,3 +123,34 @@ def test_tournament_selection_draws_distinct_valid_individuals():
     ).numpy()
     assert len(set(idx.tolist())) == poolsize
     assert (idx < 30).all()
+
+
+def test_launch_counter_is_exact_under_threads():
+    """The service's scheduler launches kernels from worker threads at
+    once: `_count_launch`, the one place a launcher counts, loses no
+    increment across 8 threads."""
+    import threading
+
+    from dmosopt_tpu_torch.ops import _variation_kernels as K
+
+    before = dict(TV.KERNEL_LAUNCHES)
+    n_threads, n_each = 8, 5000
+    start = threading.Barrier(n_threads)
+
+    def hammer():
+        start.wait()
+        for _ in range(n_each):
+            K._count_launch("offspring")
+            K._count_launch("mutation")
+
+    threads = [threading.Thread(target=hammer) for _ in range(n_threads)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    try:
+        assert TV.KERNEL_LAUNCHES["offspring"] - before["offspring"] == n_threads * n_each
+        assert TV.KERNEL_LAUNCHES["mutation"] - before["mutation"] == n_threads * n_each
+        assert TV.KERNEL_LAUNCHES["sbx"] == before["sbx"]
+    finally:
+        TV.KERNEL_LAUNCHES.update(before)
