@@ -28,7 +28,9 @@ It imports nothing of JAX nor of the JAX package. Phases, in order:
    Config 11's 64 tenants of 8 pairs of 4 genes, at 16 tenants of the
    quick start's step and at Config 12's widest bucket (16 tenants of 8
    pairs of 7 genes, phase 15), with rates and per-gene indices that
-   differ between tenants.
+   differ between tenants, and at phase 16's AGE-MOEA buckets (Config
+   2's 3 tenants of 50 pairs of 30 genes, 16 DTLZ2 tenants of 50 pairs
+   of 14 genes, population 100, pool 50).
    For each it prints the device
    time per launch, the plain version's, the host time per call of
    both, the bytes the function must move, GB/s, and the bound;
@@ -264,6 +266,48 @@ It imports nothing of JAX nor of the JAX package. Phases, in order:
    launch a generation. The chip machine has no h5py, so no phase saves
    a front or a checkpoint; the CPU tests hold those paths.
 
+16. AGE-MOEA buckets at full width, each run through run() with the
+   counters reset just before it and read just after. (a) ``bench.py``
+   Config 2 (``bench.py:274-333``: dim 30, pop 100, 100 generations, 8
+   initial points per parameter, resample 0.25, `gpr` with 4 starts and
+   100 steps, seed 42) with ZDT1, ZDT2 and ZDT3 as the three problems of
+   one run with ``tenant_batching=True`` (each problem's objective a
+   batched torch function of its own evaluator), CONFIG2_EPOCHS epochs
+   where the bench runs 5, 10 and 5: every problem routed "batched" in
+   every epoch, one fused launch a generation for the bucket and the
+   standalone kernels never, each archive finite and holding each row
+   once, each returned set non-dominated and closer to its front than
+   its initial design; ZDT1's and ZDT2's ``within_0.05`` printed. (b) 16
+   problems of the many-objective example's width (DTLZ2 with 5
+   objectives and 14 parameters as a batched torch objective, AGE-MOEA,
+   pop 100, 100 generations, no termination, 2 epochs) in one bucket:
+   one launch a generation, and the resamples' exact hypervolume
+   (reference point 2.5 per objective) over the median of 20 seeded
+   sets of as many random points, the median over the tenants at least
+   DTLZ2_HV_BAR; the same bucket with a survival that keeps random
+   survivors must fall below that bar. The same problems with
+   ``tenant_batching=False``, cut to DTLZ2_SEQ_EPOCHS epoch of
+   DTLZ2_SEQ_GENERATIONS generations, give one tenant's sequential ms a
+   generation beside the bucket's; both walls are printed.
+
+17. the mesh on one card (one H100, so one device a rank). (a) The quick
+   start through ``run(mesh=create_mesh(1))`` on a one-process NCCL
+   group, with ``surrogate_mesh`` routing every epoch's fit to the
+   row-sharded tiled Cholesky (`models.gp_sharded`): the routed fits
+   counted (``gp_shard_fits_total``, no fall-back), the fused kernel
+   once a generation, and phase 4's checks of the result. (b)
+   ``bench.py`` Config 10's real-device cell at N = 8192 (dim 8, one
+   objective, 2 starts, CONFIG10_ITERS Adam steps): `fit_gp_sharded` at
+   world size 1 against `fit_gp_batch`, both walls printed (each after
+   a warm-up call), the NMLL within rtol 5e-3 (atol 5e-3) and a
+   128-query posterior within the CPU tests' tolerances (mean atol 2e-2,
+   variance rtol 0.35). (c) Two ranks on the one card over gloo, which
+   the mesh feeds through host copies, started by
+   `parallel.loopback.launch_loopback_cluster`: the sharded rank of
+   16 384 rows x 3 objectives bitwise equal to the single-device rank,
+   and the sharded fit at 2048 rows within the same tolerances of
+   `fit_gp_batch`.
+
 ``python3 chip_smoke.py --phases 2,9,10`` runs the named phases only
 (phase 1 always), without the kernels and result lines.
 
@@ -329,12 +373,17 @@ OFFSPRING_SHAPES = {
 }
 # the bucket launch of the problem-batched core: (tenants, (npairs, n,
 # population, pool size)) at bench.py Config 11's step (pop 16, dim 4),
-# at 16 tenants of the quick start's step, and at the widest bucket of
-# Config 12 at T = 64 (phase 15: 16 tenants of dim 7)
+# at 16 tenants of the quick start's step, at the widest bucket of
+# Config 12 at T = 64 (phase 15: 16 tenants of dim 7), and at phase 16's
+# AGE-MOEA buckets
 BUCKET_SHAPES = {
     "bucket_config11": (64, (8, 4, 16, 8)),
     "bucket_quick16": (16, (100, 30, 200, 100)),
     "bucket_config12": (16, (8, 7, 16, 8)),
+    # AGE-MOEA buckets (phase 16): bench.py Config 2's three ZDT problems
+    # and 16 DTLZ2 problems, pop 100 (50 pairs, a pool of 50)
+    "bucket_age_config2": (3, (50, 30, 100, 50)),
+    "bucket_age_dtlz2": (16, (50, 14, 100, 50)),
 }
 # calls queued per timing round: the kernels launch once per call, the
 # standalone plain versions 15-25 times, the plain offspring step ~55
@@ -2995,6 +3044,346 @@ def service_phase(torch, V, smi):
     return launches
 
 
+# phase 16: AGE-MOEA buckets. (a) bench.py Config 2 (bench.py:274-333)
+# as the three problems of one run, its 5/10/5 epochs cut to 3;
+# (b) 16 DTLZ2 problems of the many-objective example's width
+CONFIG2_EPOCHS = 3
+DTLZ2_TENANTS, DTLZ2_EPOCHS = 16, 2
+# the sequential comparison of (b), cut to this depth (16 tenants one
+# after another at full depth would take minutes): its ms a generation
+# is compared, not its wall
+DTLZ2_SEQ_GENERATIONS, DTLZ2_SEQ_EPOCHS = 10, 1
+DTLZ2_HV_BAR = 1.07
+
+
+class _ProblemsEvaluator:
+    """One batched torch objective per problem (ZDT1-3 for Config 2's
+    three problems), each a `TorchBatchEvaluator` of its own: the driver
+    hands an evaluator rounds of ``{problem_id: row}``."""
+
+    def __init__(self, torch, fns):
+        from dmosopt_tpu_torch.parallel.evaluator import TorchBatchEvaluator
+
+        self.inner = {pid: TorchBatchEvaluator(fn, torch.device("cuda"), problem_ids=[pid])
+                      for pid, fn in fns.items()}
+
+    def evaluate_batch(self, space_vals_list):
+        results = [dict() for _ in space_vals_list]
+        for pid, ev in self.inner.items():
+            idx = [i for i, sv in enumerate(space_vals_list) if pid in sv]
+            if idx:
+                out = ev.evaluate_batch([{pid: space_vals_list[i][pid]} for i in idx])
+                for i, o in zip(idx, out):
+                    results[i][pid] = o[pid]
+                    results[i]["time"] = o["time"]
+        return results
+
+
+def config2_buckets(torch, V, smi):
+    """Phase 16 (a): bench.py Config 2's ZDT1, ZDT2 and ZDT3 (dim 30,
+    AGE-MOEA, pop 100, 100 generations, 8 initial points per parameter,
+    resample 0.25, `gpr` with 4 starts and 100 steps, seed 42) as the
+    three problems of one run with ``tenant_batching=True``."""
+    import numpy as np
+
+    from dmosopt_tpu_torch.benchmarks.zdt import (
+        distance_to_front, zdt1, zdt1_pareto, zdt2, zdt2_pareto, zdt3, zdt3_pareto,
+    )
+
+    fns = {0: zdt1, 1: zdt2, 2: zdt3}
+    fronts = {0: zdt1_pareto(500), 1: zdt2_pareto(500), 2: zdt3_pareto(500)}
+    dim, gens = 30, 100
+    params = config11_params(
+        "config2_age", 3, problem_ids={0, 1, 2}, obj_fun=zdt1,
+        evaluator=_ProblemsEvaluator(torch, fns),
+        space={f"x{i:02d}": [0.0, 1.0] for i in range(dim)}, n_initial=8,
+        n_epochs=CONFIG2_EPOCHS, population_size=100, num_generations=gens,
+        resample_fraction=0.25, optimizer_name="age",
+        surrogate_method_kwargs={"n_starts": 4, "n_iter": 100, "seed": 0},
+        random_seed=42,
+    )
+    wall, launches, dopt, best = _tenant_run(torch, V, params)
+    routes = [set(s["routing"].values()) for s in dopt.epoch_stats]
+    assert routes == [{"batched"}] * CONFIG2_EPOCHS, routes
+    assert launches == {"offspring": CONFIG2_EPOCHS * gens, "sbx": 0, "mutation": 0}, launches
+    archives = _check_tenants(dopt, best, "config 2")
+    n0 = 8 * dim
+    within = {}
+    for pid, (_, y_all, y) in archives.items():
+        d_best = float(np.median(distance_to_front(y, fronts[pid])))
+        d_init = float(np.median(distance_to_front(y_all[:n0], fronts[pid])))
+        assert d_best < d_init, (pid, d_best, d_init)
+        within[pid] = int((distance_to_front(y, fronts[pid]) < 0.05).sum())
+        print(f"[{smi}] config 2 zdt{pid + 1}: {y.shape[0]} returned, median distance "
+              f"to the front {d_best:.4f} (initial design {d_init:.4f}), "
+              f"within_0.05 {within[pid]}")
+    for s in dopt.epoch_stats:
+        p0 = s["problems"][0]
+        print(f"[{smi}] config 2 epoch {s['epoch']}: {s['epoch_s']:.3f} s, bucket fit "
+              f"{3 * p0['cost_fit_seconds']:.3f} s ({p0['objective']['n_steps']} Adam "
+              f"steps), bucket EA {3 * p0['cost_ea_seconds']:.3f} s "
+              f"({1e3 * 3 * p0['cost_ea_seconds'] / gens:.2f} ms a generation)")
+    print(f"[{smi}] config 2 (3 AGE-MOEA problems, one bucket, {CONFIG2_EPOCHS} epochs): "
+          f"{wall:.3f} s, offspring launches {launches['offspring']} (one a generation "
+          f"for the bucket); within_0.05 zdt1 {within[0]}, zdt2 {within[1]}")
+    return launches
+
+
+def _dtlz2_params(opt_id, **over):
+    from dmosopt_tpu_torch.benchmarks.moo_benchmarks import (
+        generate_problem_space, get_problem,
+    )
+
+    n_obj = 5
+    params = {
+        "opt_id": opt_id, "obj_fun": get_problem("dtlz2", n_obj), "torch_objective": True,
+        "problem_parameters": {}, "space": generate_problem_space("dtlz2", n_obj),
+        "objective_names": [f"f{i + 1}" for i in range(n_obj)],
+        "population_size": 100, "num_generations": 100, "optimizer_name": "age",
+        "surrogate_method_name": "gpr", "n_initial": 5, "n_epochs": DTLZ2_EPOCHS,
+        "resample_fraction": 0.5, "random_seed": 7,
+        "problem_ids": set(range(DTLZ2_TENANTS)), "tenant_batching": True,
+    }
+    params.update(over)
+    return params
+
+
+def _resample_hv_ratio(dopt, random_sets):
+    """Median over the tenants of the resampled rows' exact hypervolume
+    (reference 2.5 per objective) over the median of as many rows of
+    each random set."""
+    import numpy as np
+
+    from dmosopt_tpu_torch.hv import hypervolume_exact
+
+    ref = np.full(5, 2.5)
+    n0 = 5 * 14
+    ratios = []
+    for pid in sorted(dopt.problem_ids):
+        _, y_all = dopt.optimizer_dict[pid].get_evals()
+        k = y_all.shape[0] - n0
+        hv_random = [hypervolume_exact(r[:k], ref) for r in random_sets]
+        ratios.append(hypervolume_exact(y_all[n0:], ref) / np.median(hv_random))
+    return float(np.median(ratios)), ratios
+
+
+def dtlz2_buckets(torch, V, smi):
+    """Phase 16 (b): 16 DTLZ2 problems (5 objectives, 14 parameters, a
+    batched torch objective; AGE-MOEA, pop 100, 100 generations, no
+    termination, 2 epochs) in one bucket, against the same problems
+    without batching at a cut depth, and against a bucket whose survival
+    keeps random survivors, which must fail the hypervolume gate."""
+    import numpy as np
+
+    from dmosopt_tpu_torch.benchmarks.moo_benchmarks import get_problem
+    from dmosopt_tpu_torch.optimizers import agemoea
+
+    gens, T = 100, DTLZ2_TENANTS
+    wall, launches, dopt, best = _tenant_run(torch, V, _dtlz2_params("dtlz2_bucket"))
+    routes = [set(s["routing"].values()) for s in dopt.epoch_stats]
+    assert routes == [{"batched"}] * DTLZ2_EPOCHS, routes
+    assert launches == {"offspring": DTLZ2_EPOCHS * gens, "sbx": 0, "mutation": 0}, launches
+    _check_tenants(dopt, best, "dtlz2 bucket")
+    # 20 seeded sets of random points, drawn and evaluated on the card;
+    # a tenant is compared with as many of each set's rows as it resampled
+    n_res = int(100 * 0.5) * (DTLZ2_EPOCHS - 1)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    f = get_problem("dtlz2", 5)
+    random_sets = [f(torch.rand(n_res, 14, generator=gen, device="cuda")).cpu().numpy()
+                   for _ in range(20)]
+    ratio, ratios = _resample_hv_ratio(dopt, random_sets)
+    bucket_ms = 1e3 * sum(T * s["problems"][0]["cost_ea_seconds"]
+                          for s in dopt.epoch_stats) / (DTLZ2_EPOCHS * gens)
+
+    # the mutated copy: survival keeps random rows (the valid ones first)
+    orig = agemoea.environmental_selection
+
+    def random_survivors(x, y, pop, x_keys=None, mask=None):
+        perm, rank, crowd = orig(x, y, pop, x_keys=x_keys, mask=mask)
+        key = torch.where(crowd > -torch.inf, torch.rand(crowd.shape, device=crowd.device), 2.0)
+        return torch.argsort(key, dim=-1), rank, crowd
+
+    agemoea.environmental_selection = random_survivors
+    try:
+        _, _, dopt_bad, _ = _tenant_run(torch, V, _dtlz2_params("dtlz2_random_survivors"))
+    finally:
+        agemoea.environmental_selection = orig
+    ratio_bad, _ = _resample_hv_ratio(dopt_bad, random_sets)
+
+    seq_wall, seq_launches, dopt_seq, _ = _tenant_run(torch, V, _dtlz2_params(
+        "dtlz2_sequential", tenant_batching=False, num_generations=DTLZ2_SEQ_GENERATIONS,
+        n_epochs=DTLZ2_SEQ_EPOCHS))
+    assert seq_launches["offspring"] == T * DTLZ2_SEQ_EPOCHS * DTLZ2_SEQ_GENERATIONS, seq_launches
+    seq_ms = [1e3 * p["optimize_s"] / p["n_generations"]
+              for s in dopt_seq.epoch_stats for p in s["problems"].values()]
+    print(f"[{smi}] {T} DTLZ2 problems, AGE-MOEA, one bucket, {DTLZ2_EPOCHS} epochs: "
+          f"{wall:.3f} s, offspring launches {launches['offspring']}, bucket "
+          f"{bucket_ms:.2f} ms a generation for {T} tenants; sequential "
+          f"(tenant_batching=False), its depth cut to {DTLZ2_SEQ_EPOCHS} epoch of "
+          f"{DTLZ2_SEQ_GENERATIONS} generations against the bucket's {DTLZ2_EPOCHS} "
+          f"of {gens}, so only ms a generation compare: {seq_wall:.3f} s, one tenant "
+          f"{np.median(seq_ms):.2f} ms a generation (median of {T}; {T} tenants "
+          f"{T * np.median(seq_ms):.2f} ms), {seq_launches['offspring']} launches")
+    print(f"[{smi}] {T} DTLZ2 problems: resamples' hypervolume over the random sets' "
+          f"median, median over the tenants {ratio:.4f} (per tenant "
+          f"{min(ratios):.4f}-{max(ratios):.4f}; bar {DTLZ2_HV_BAR}); the "
+          f"random-survivor bucket {ratio_bad:.4f}")
+    assert ratio >= DTLZ2_HV_BAR, (ratio, DTLZ2_HV_BAR)
+    assert ratio_bad < DTLZ2_HV_BAR, ("the gate passes random survivors", ratio_bad)
+    return launches, seq_launches
+
+
+def age_buckets(torch, V, smi):
+    """Phase 16: AGE-MOEA buckets at full width. Returns each run's
+    launches."""
+    out = {"config2": config2_buckets(torch, V, smi)}
+    out["dtlz2_bucket"], out["dtlz2_sequential"] = dtlz2_buckets(torch, V, smi)
+    return out
+
+
+# phase 17: the mesh on one card. (b) is bench.py Config 10's
+# real-device cell (bench.py:1340-1434) at one device
+CONFIG10_N, CONFIG10_ITERS = 8192, 8
+QUICK_MESH_MIN_POINTS = 64
+
+
+def mesh_quick_start(torch, V, smi):
+    """Phase 17 (a): the quick start through run(mesh=create_mesh(1)) on
+    a one-process NCCL group, with the row-sharded fit routed
+    (``surrogate_mesh`` from QUICK_MESH_MIN_POINTS rows). At world size 1
+    every collective returns its operand, so no NCCL collective runs,
+    and the generation loop keeps the blocked single-device rank."""
+    import numpy as np
+
+    from dmosopt_tpu_torch.benchmarks.zdt import distance_to_front, zdt1_pareto
+    from dmosopt_tpu_torch.parallel.mesh import create_mesh, initialize_distributed
+
+    dim, pop, gens, n_initial, n_epochs = QUICK_START
+    initialize_distributed()  # device None: this card, an NCCL group
+    mesh = create_mesh(1)
+    params = quick_start_params(
+        "zdt1_quick_start_mesh", mesh=mesh,
+        surrogate_method_kwargs={"surrogate_mesh": {"min_points": QUICK_MESH_MIN_POINTS}})
+    wall, launches, dopt, best = _tenant_run(torch, V, params)
+    n_gen = sum(s["n_generations"] for s in dopt.epoch_stats)
+    assert n_gen == n_epochs * gens and launches == {"offspring": n_gen, "sbx": 0,
+                                                     "mutation": 0}, launches
+    assert all(s["objective"].get("sharded") is True for s in dopt.epoch_stats), \
+        dopt.epoch_stats
+    reg = dopt.telemetry.registry
+    assert reg.counter_value("gp_shard_fits_total") == n_epochs
+    assert reg.counter_value("gp_shard_fallbacks_total") == 0
+    x_all, y_all = dopt.optimizer_dict[0].get_evals()
+    n0 = n_initial * dim
+    _check_archive(x_all, y_all, dopt.eval_count, "mesh quick start")
+    y = np.column_stack([v for _, v in best[1]])
+    assert y.shape[0] > 0 and np.all(np.isfinite(y)) and _non_dominated(y)
+    front = zdt1_pareto(1000)
+    d_best = float(np.median(distance_to_front(y, front)))
+    d_init = float(np.median(distance_to_front(y_all[:n0], front)))
+    assert d_best < d_init, (d_best, d_init)
+    for s in dopt.epoch_stats:
+        print(f"[{smi}] mesh quick start epoch {s['epoch']}: {s['epoch_s']:.3f} s, "
+              f"sharded GP fit {s['train_s']:.3f} s ({s['objective']['n_steps']} Adam "
+              f"steps, tile {s['objective']['shard_tile']}), EA {s['optimize_s']:.3f} s")
+    print(f"[{smi}] mesh quick start (world size 1, an NCCL group; no collective "
+          f"runs at one rank): {wall:.3f} s, sharded fits "
+          f"{reg.counter_value('gp_shard_fits_total'):g}, offspring launches "
+          f"{launches['offspring']}; median distance to the front {d_best:.4f} "
+          f"(initial design {d_init:.4f})")
+    return launches, mesh
+
+
+def config10(torch, V, smi, mesh):
+    """Phase 17 (b): bench.py Config 10 at N = 8192 (dim 8, one
+    objective, 2 starts, CONFIG10_ITERS Adam steps, no convergence
+    stop): `fit_gp_sharded` on the one-device mesh against
+    `fit_gp_batch`, each timed after a warm-up call."""
+    import numpy as np
+
+    from dmosopt_tpu_torch.models import gp, gp_sharded
+
+    N = CONFIG10_N
+    rng = np.random.default_rng(0)
+    Xh = rng.uniform(size=(N, 8)).astype(np.float32)
+    y = np.sin(3.0 * Xh[:, 0]) + Xh.sum(1)
+    X = torch.as_tensor(Xh, device="cuda")
+    Y = torch.as_tensor(((y - y.mean()) / y.std())[:, None].astype(np.float32), device="cuda")
+    kw = dict(n_starts=2, n_iter=CONFIG10_ITERS, convergence_tol=None)
+
+    def timed(fn):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    sharded, t_sh = timed(lambda: gp_sharded.fit_gp_sharded(
+        torch.Generator(device="cuda").manual_seed(1), X, Y, mesh=mesh, **kw))
+    single, t_one = timed(lambda: gp.fit_gp_batch(
+        torch.Generator(device="cuda").manual_seed(1), X, Y, **kw))
+    Xq = torch.as_tensor(rng.uniform(size=(128, 8)).astype(np.float32), device="cuda")
+    (m1, v1), (m0, v0) = gp.gp_predict(sharded, Xq), gp.gp_predict(single, Xq)
+    mean_err = float((m1 - m0).abs().max())
+    n1, n0 = float(sharded.nmll[0]), float(single.nmll[0])
+    print(f"[{smi}] config 10 N={N} (one device, tile "
+          f"{gp_sharded.default_chol_tile(N)}, {CONFIG10_ITERS} Adam steps x 2 starts): "
+          f"sharded fit {t_sh:.3f} s, fit_gp_batch {t_one:.3f} s; NMLL {n1:.3f} against "
+          f"{n0:.3f}; 128-query mean max error {mean_err:.3e}")
+    assert abs(n1 - n0) <= 5e-3 + 5e-3 * abs(n0), (n1, n0)
+    assert mean_err <= 2e-2, mean_err
+    np.testing.assert_allclose(v1.cpu().numpy(), v0.cpu().numpy(), rtol=0.35, atol=1e-4)
+    return t_sh, t_one
+
+
+def two_ranks(torch, smi):
+    """Phase 17 (c): two ranks on the one card over gloo (NCCL refuses
+    two ranks on one device), through the port's loopback cluster: the
+    sharded rank of 16 384 rows x 3 objectives bitwise equal to the
+    single-device rank, the sharded fit at 2048 rows within tolerance of
+    `fit_gp_batch`."""
+    import tempfile
+
+    from dmosopt_tpu_torch.parallel.loopback import launch_loopback_cluster
+    from dmosopt_tpu_torch.testing import multihost
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "two_ranks.json")
+        t0 = time.perf_counter()
+        results = launch_loopback_cluster(multihost.__file__, n_processes=2, timeout=600,
+                                          extra_args=("chip", path))
+        wall = time.perf_counter() - t0
+        for rc, out in results:
+            assert rc == 0 and "MULTIHOST_OK" in out, out[-4000:]
+        with open(path) as f:
+            rec = json.load(f)
+    assert rec["rank_equal"], rec
+    n1, n0 = rec["nmll_sharded"], rec["nmll_single"]
+    assert abs(n1 - n0) <= 5e-3 + 5e-3 * abs(n0), rec
+    assert rec["mean_max_abs_err"] <= 2e-2, rec
+    print(f"[{smi}] two ranks on one card over gloo ({wall:.1f} s with start-up): sharded "
+          f"rank of {rec['rank_rows']} x 3 bitwise equal to the single-device rank "
+          f"({rec['rank_fronts']} fronts, {rec['sharded_rank_s']:.3f} s); sharded fit at "
+          f"{rec['fit_rows']} rows {rec['sharded_fit_s']:.3f} s, NMLL {n1:.4f} against "
+          f"{n0:.4f}, 128-query mean max error {rec['mean_max_abs_err']:.3e}")
+    return rec
+
+
+def mesh_phase(torch, V, smi):
+    """Phase 17: the mesh on one card. Returns the quick start's launches."""
+    import torch.distributed as dist
+
+    try:
+        launches, mesh = mesh_quick_start(torch, V, smi)
+        config10(torch, V, smi, mesh)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    two_ranks(torch, smi)
+    return {"mesh_quick_start": launches}
+
+
 def _requested_phases(argv):
     """The phases of ``--phases 2,9,10``, or None for the whole script."""
     if not argv:
@@ -3030,7 +3419,7 @@ def main() -> int:
                 6: many_objective, 7: lorenz_run, 8: config5_loop,
                 9: constrained_run, 10: sa_run, 11: reusing_surrogate,
                 12: sparse_surrogates, 13: tenant_core, 14: telemetry_phase,
-                15: service_phase}
+                15: service_phase, 16: age_buckets, 17: mesh_phase}
         for p in sorted(phases):
             t0 = time.perf_counter()
             fn = runs[p]
@@ -3065,10 +3454,15 @@ def main() -> int:
     t8 = time.perf_counter()
     launches_service = service_phase(torch, V, smi)
     t9 = time.perf_counter()
+    launches_age = age_buckets(torch, V, smi)
+    t10 = time.perf_counter()
+    launches_mesh = mesh_phase(torch, V, smi)
+    t11 = time.perf_counter()
     print(f"[{smi}] phase 7 {t1 - t0:.1f} s, phase 8 {t2 - t1:.1f} s, phase 9 "
           f"{t3 - t2:.1f} s, phase 10 {t4 - t3:.1f} s, phase 11 {t5 - t4:.1f} s, "
           f"phase 12 {t6 - t5:.1f} s, phase 13 {t7 - t6:.1f} s, phase 14 {t8 - t7:.1f} s, "
-          f"phase 15 {t9 - t8:.1f} s")
+          f"phase 15 {t9 - t8:.1f} s, phase 16 {t10 - t9:.1f} s, phase 17 "
+          f"{t11 - t10:.1f} s")
     assert "jax" not in sys.modules and "dmosopt_tpu" not in sys.modules
 
     kernels = []
@@ -3092,6 +3486,8 @@ def main() -> int:
             "launches_tenant_runs": {m: n[name] for m, n in launches_tenants.items()},
             "launches_telemetry_runs": {m: n[name] for m, n in launches_telemetry.items()},
             "launches_service_runs": {m: n[name] for m, n in launches_service.items()},
+            "launches_age_bucket_runs": {m: n[name] for m, n in launches_age.items()},
+            "launches_mesh_runs": {m: n[name] for m, n in launches_mesh.items()},
             "max_abs_err": max(r["max_abs_err"] for r in rep["rows"].values()),
             "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
             "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],

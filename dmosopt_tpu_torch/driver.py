@@ -57,9 +57,16 @@ capture joined into the device ledger; at its end the health rules are
 evaluated and, with ``save``, the epoch's summary, spans and alert
 transitions go into the store's ``telemetry``, ``telemetry_spans`` and
 ``telemetry_alerts`` groups in the JAX package's schema. The driver
-options of the JAX package that this port does not carry yet raise
-`NotImplementedError` instead of being ignored: ``jax_objective`` and
-meshes.
+options of the JAX package that this port does not carry raise
+`NotImplementedError` instead of being ignored: ``jax_objective``.
+
+With a ``mesh`` (`parallel.mesh`) the run is one process per device,
+every rank running this same driver with the same seeds: the inner EA's
+survival ranks, the surrogate's predicts and a torch objective's batch
+rows split over the mesh's first axis, the GP fit's restarts over a
+``"model"`` axis. Rank 0 decides whether to resume and broadcasts the
+decision, every rank reads the store before any writes it (a barrier),
+and only rank 0 writes (`parallel.mesh.is_primary_process`).
 """
 
 from __future__ import annotations
@@ -74,6 +81,7 @@ from typing import Dict
 
 import numpy as np
 import torch
+from torch.distributed.device_mesh import DeviceMesh
 
 from dmosopt_tpu_torch import moasmo as opt
 from dmosopt_tpu_torch import storage
@@ -91,8 +99,10 @@ from dmosopt_tpu_torch.parallel.evaluator import (
     HostFunEvaluator,
     TorchBatchEvaluator,
 )
+from dmosopt_tpu_torch.models.gp_sharded import set_gp_shard_telemetry
 from dmosopt_tpu_torch.models.predictor import set_predictor_telemetry
 from dmosopt_tpu_torch.ops.dominance import set_rank_telemetry
+from dmosopt_tpu_torch.parallel.mesh import is_primary_process, process_count
 from dmosopt_tpu_torch.parallel.pipeline import BackgroundWriter, PipelineConfig
 from dmosopt_tpu_torch.strategy import DistOptStrategy
 from dmosopt_tpu_torch.telemetry import (
@@ -196,7 +206,7 @@ class _InflightBatch:
 
 # driver options of the JAX package that are not ported, with the value
 # that means "not used"
-_UNPORTED_DEFAULTS = {"jax_objective": False, "mesh": None}
+_UNPORTED_DEFAULTS = {"jax_objective": False}
 # keyword arguments of the reference's distwq `run()` that the JAX
 # package's `run()` accepts and ignores (dmosopt_tpu/driver.py:1600-1602)
 _LEGACY_RUN_KWARGS = ("spawn_workers", "nprocs_per_worker")
@@ -233,7 +243,7 @@ class DistOptimizer:
         metadata=None,
         torch_objective=False, evaluator=None, n_eval_workers=1, pipeline=None,
         tenant_batching=False, min_tenant_bucket=2, stats_per_problem="auto",
-        device=None, verbose=False,
+        device=None, mesh=None, verbose=False,
         **kwargs,
     ) -> None:
         """MO-ASMO optimization driver (reference dmosopt/dmosopt.py:546-630).
@@ -286,6 +296,13 @@ class DistOptimizer:
           the rows it returns are evaluated, until it returns None.
         device: where the surrogate, the inner EA and a torch objective
           run; None means CUDA (and raises without one).
+        mesh: a `parallel.mesh.create_mesh` mesh (one process per device,
+          every rank running this same run): the inner EA's survival
+          ranks, the surrogate's predicts and a torch objective's batch
+          rows are split over its first axis, the GP fit's restarts over
+          a ``"model"`` axis (and with ``surrogate_method_kwargs=
+          {"surrogate_mesh": ...}`` the fit's Cholesky over row slabs);
+          rank 0 decides a resume and alone writes the store.
         telemetry: None/True for the on-by-default metrics, event log,
           spans and health engine; False for none at all (no telemetry
           call); a dict of `telemetry.Telemetry` keyword arguments
@@ -380,15 +397,32 @@ class DistOptimizer:
             problem_parameters = ParameterSpace.from_dict(
                 problem_parameters, is_value_only=True
             )
-        # one process: resume exactly when the file exists
-        resuming = file_path is not None and os.path.isfile(file_path)
+        if mesh is not None and not isinstance(mesh, DeviceMesh):
+            raise TypeError(
+                f"mesh must be a torch.distributed DeviceMesh "
+                f"(parallel.mesh.create_mesh), not {type(mesh).__name__}"
+            )
+        self.mesh = mesh
+        # every rank of a cluster takes the primary's resume decision,
+        # made before the primary can create the file
+        resuming = self._broadcast_resume_decision(file_path, self.device)
         self._resuming = resuming
         self.old_evals = {}
         self.start_epoch = 0
         if resuming:
+            if not os.path.isfile(file_path):
+                # a rank that fell through to a fresh start would leave the
+                # primary's control flow and hang the cluster in a collective
+                raise FileNotFoundError(
+                    f"resume decided (primary sees {file_path!r}) but this "
+                    f"process cannot read it: is the store on a shared "
+                    f"filesystem?"
+                )
             (seed, max_epoch, self.old_evals, param_space, objective_names,
              feature_dtypes, constraint_names, problem_parameters,
              problem_ids) = self._restore_from_file(file_path, param_space)
+            # every rank has read the store before any rank appends to it
+            self._barrier_after_restore()
             self.feature_dtypes = feature_dtypes
             self.constraint_names = constraint_names
             self.start_epoch = max(max_epoch, 0)
@@ -453,7 +487,8 @@ class DistOptimizer:
         # be shared across runs
         self._owns_evaluator = evaluator is None
         self.evaluator = evaluator if evaluator is not None else (
-            TorchBatchEvaluator(obj_fun, self.device, problem_ids=sorted(self.problem_ids))
+            TorchBatchEvaluator(obj_fun, self.device, problem_ids=sorted(self.problem_ids),
+                                mesh=mesh)
             if torch_objective
             else HostFunEvaluator(self.eval_fun, n_workers=n_eval_workers)
         )
@@ -464,7 +499,7 @@ class DistOptimizer:
             except AttributeError:
                 pass
 
-        if self.save and not resuming:
+        if self.save and not resuming and is_primary_process():
             storage.init_h5(
                 self.opt_id, self.problem_ids, self.has_problem_ids,
                 self.param_space, self.param_names, self.objective_names,
@@ -503,6 +538,37 @@ class DistOptimizer:
         )
 
     # --------------------------------------------------------- init helpers
+
+    @staticmethod
+    def _broadcast_resume_decision(file_path, device) -> bool:
+        """Whether this run restores from ``file_path``
+        (``dmosopt_tpu/driver.py:535-560``): one process checks the file;
+        in a cluster the primary's answer is broadcast, so every rank
+        takes the same branch and no rank probes a file the primary may
+        be creating. The paired `_barrier_after_restore` closes the
+        read-against-append race."""
+        exists = file_path is not None and os.path.isfile(file_path)
+        if process_count() == 1:
+            return exists
+        import torch.distributed as dist
+
+        flag = torch.tensor([int(exists)], dtype=torch.int32)
+        if dist.get_backend() == "nccl":
+            flag = flag.to(device)
+        dist.broadcast(flag, src=0)
+        return bool(flag.item())
+
+    @staticmethod
+    def _barrier_after_restore():
+        """Every rank has finished reading the store before any appends
+        to it (``dmosopt_tpu/driver.py:562-575``): h5py without SWMR
+        gives a reader no consistency against a concurrent writer. No-op
+        in one process."""
+        if process_count() == 1:
+            return
+        import torch.distributed as dist
+
+        dist.barrier()
 
     @staticmethod
     def _check_persistence_config(file_path, save, problem_parameters, space):
@@ -659,7 +725,7 @@ class DistOptimizer:
                 optimize_mean_variance=self.optimize_mean_variance,
                 persist_features=self.persist_features, file_path=self.file_path,
                 local_random=self.local_random, logger=self.logger,
-                device=self.device, telemetry=self.telemetry,
+                device=self.device, telemetry=self.telemetry, mesh=self.mesh,
                 # the xinit phase is tagged with the run's first epoch, so a
                 # resumed run's summary keeps it
                 xinit_epoch=self.start_epoch,
@@ -745,7 +811,10 @@ class DistOptimizer:
         over host values only (numpy arrays, Python scalars), built
         before the call, so the writer thread never touches a device
         tensor or live driver state; the writer runs closures in
-        submission order, so the file sees the serial loop's writes."""
+        submission order, so the file sees the serial loop's writes. In a
+        cluster only the primary writes (``dmosopt_tpu/driver.py:909-968``)."""
+        if not is_primary_process():
+            return
         if not self.pipeline.overlaps_io:
             with span_scope(self.telemetry, "h5_write"):
                 self._timed_write(fn, *args, **kwargs)
@@ -796,7 +865,7 @@ class DistOptimizer:
                     ],
                 )
                 self.storage_dict[problem_id] = []
-        if finished:
+        if finished and is_primary_process():
             # `finished` is a snapshot (the live lists were reset above)
             self._submit_write(
                 storage.save_to_h5,
@@ -1374,10 +1443,12 @@ def run(
     if device is not None:
         dopt_params["device"] = device
     dopt = dopt_init(dopt_params, verbose=verbose, initialize_strategy=True)
-    # the rank's and the predictor's process-wide hooks record into this
-    # run's telemetry for its duration only (None: no calls)
+    # the rank's, the predictor's and the sharded fit's process-wide hooks
+    # record into this run's telemetry for its duration only (None: no
+    # calls; ``dmosopt_tpu/driver.py:1620-1626``)
     set_rank_telemetry(dopt.telemetry)
     set_predictor_telemetry(dopt.telemetry)
+    set_gp_shard_telemetry(dopt.telemetry)
     dopt.logger.info(f"Optimizing for {dopt.n_epochs} epochs...")
     body_ok = False
     try:
@@ -1412,6 +1483,7 @@ def run(
         finally:
             set_rank_telemetry(None)
             set_predictor_telemetry(None)
+            set_gp_shard_telemetry(None)
             # a caller's Telemetry may serve later runs: close only ours
             if dopt.telemetry is not None and dopt._owns_telemetry:
                 dopt.telemetry.close()

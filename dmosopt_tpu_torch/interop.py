@@ -3,7 +3,7 @@
 Builds the port's GP fit (with a mesh-sharded fit's ``whitened``
 factor, or a problems axis), a Nyström predictor cache, a sparse variational fit, a
 deep-kernel GP fit, NSGA-II (single and stacked, as the batched
-tenant core steps them), AGE-MOEA, MO-CMA-ES, SMPSO and TRS states
+tenant core steps them), AGE-MOEA (single and stacked), MO-CMA-ES, SMPSO and TRS states
 and a fitted feasibility model from dicts of numpy arrays,
 e.g. ``{k: np.asarray(v) for k, v in fit._asdict().items()}`` of a JAX
 `GPFit` or `NSGA2State`, so the same numbers can go through both
@@ -128,6 +128,19 @@ def agemoea_state_from_arrays(d: dict, device) -> AGEMOEAState:
     out["rank"] = out["rank"].to(torch.int32)
     out["n_active"] = out["n_active"].to(torch.int32)
     return AGEMOEAState(**out)
+
+
+def stacked_agemoea_state_from_arrays(states, device) -> AGEMOEAState:
+    """Stacked `AGEMOEAState` (a leading (T,) tenants axis on every
+    field) from a dict of a ``jax.vmap``-ed state's fields, or from a
+    list of T per-tenant dicts."""
+    if isinstance(states, dict):
+        return agemoea_state_from_arrays(states, device)
+    return agemoea_state_from_arrays(
+        {k: np.stack([np.asarray(s[k]) for s in states])
+         for k in AGEMOEAState.field_names()},
+        device,
+    )
 
 
 def cmaes_state_from_arrays(d: dict, device) -> CMAESState:

@@ -30,7 +30,9 @@ what the JAX engine records: the ``gp_fit`` span with the ``train``
 phase, the ``ea_scan`` span with the ``optimize`` phase and
 ``ea_generations_total``, the ``resample`` span with
 ``resample_points_total`` and the ``resample`` event; the phases close
-where the epoch already synchronizes. Its meshes are not ported.
+where the epoch already synchronizes. A ``mesh`` shards the inner loop's
+rank and predicts and goes to the surrogate (`_optimize_on_device`,
+`train`).
 """
 
 from __future__ import annotations
@@ -56,6 +58,7 @@ from dmosopt_tpu_torch.config import (
 from dmosopt_tpu_torch.datatypes import EpochResults, OptHistory
 from dmosopt_tpu_torch.models import Model
 from dmosopt_tpu_torch.ops import crowding_distance, sort_mo
+from dmosopt_tpu_torch.ops.dominance import rank_route
 from dmosopt_tpu_torch.telemetry import phase_scope, span_scope
 from dmosopt_tpu_torch.telemetry.hooks import generation_loop
 from dmosopt_tpu_torch.utils.device import resolve_device
@@ -159,6 +162,37 @@ def offspring_per_generation(optimizer) -> int:
     return max(1, int(optimizer.n_offspring()))
 
 
+def _shard_if_divisible(optimizer, mesh, logger=None):
+    """The sharded rank of a mesh run's generation loop, over the mesh's
+    first axis when its size divides the population capacity; None
+    without a mesh or with an axis of one device (nothing to split: the
+    blocked single-device rank runs), and with the reference's warning
+    when the axis does not divide (``dmosopt_tpu/moasmo.py:332-353``)."""
+    if mesh is None:
+        return None
+    from functools import partial
+
+    from dmosopt_tpu_torch.parallel.mesh import axis_size, non_dominated_rank_sharded
+
+    pop = getattr(optimizer, "capacity", optimizer.popsize)
+    pop_axis = mesh.mesh_dim_names[0]
+    n_shards = axis_size(mesh, pop_axis)  # sharding is over the first axis only
+    if n_shards == 1:
+        return None
+    if pop % n_shards == 0:
+        return partial(non_dominated_rank_sharded, mesh=mesh, axis=pop_axis)
+    import warnings
+
+    msg = (
+        f"popsize {pop} not divisible by mesh axis "
+        f"{pop_axis!r} size {n_shards}; running replicated"
+    )
+    warnings.warn(msg)
+    if logger is not None:
+        logger.warning(msg)
+    return None
+
+
 def _optimize_on_device(
     optimizer,
     eval_fn,
@@ -168,10 +202,20 @@ def _optimize_on_device(
     termination_check_interval: int = 10,
     logger=None,
     stats: Optional[Dict[str, Any]] = None,
+    mesh=None,
 ):
     """The inner EA loop on the optimizer's device (reference
     `_optimize_on_device`, ``dmosopt_tpu/moasmo.py:288``, scanned XLA
     programs). Offspring stay on the device until the loop ends.
+
+    With a ``mesh`` (`parallel.mesh`) whose first axis divides the
+    population, every rank runs the same loop on its replicated state
+    and the survival ranks are computed with the rows split over that
+    axis (`parallel.mesh.non_dominated_rank_sharded`, bitwise the
+    unsharded ranks); the surrogate's predicts split their queries when
+    its predictor carries the mesh. A population the axis does not
+    divide runs replicated, with the reference's warning
+    (`_shard_if_divisible`, ``dmosopt_tpu/moasmo.py:332-353``).
 
     Without a criterion and a fixed population the loop runs
     ``num_generations`` generations back to back. With a termination
@@ -198,12 +242,15 @@ def _optimize_on_device(
     lb, ub = bounds[:, 0], bounds[:, 1]
     adaptive = optimizer.adaptive_population_size
     xs, ys, counts = [], [], []
+    sharded_rank = _shard_if_divisible(optimizer, mesh, logger)
 
     def run_chunk(n):
         """n generations; returns the offspring they evaluated."""
         state = optimizer.state
         first = len(counts)
-        with generation_loop():
+        route = (rank_route(sharded_rank) if sharded_rank is not None
+                 else contextlib.nullcontext())
+        with generation_loop(), route:
             for _ in range(n):
                 x_gen, state = optimizer.generate_strategy(generator, state)
                 x_gen = torch.clamp(x_gen, lb, ub)
@@ -265,6 +312,7 @@ def _optimize_on_device(
             gen += n
             if adaptive and optimizer.maybe_grow_capacity():
                 noff = offspring_per_generation(optimizer)
+                sharded_rank = _shard_if_divisible(optimizer, mesh, logger)
                 if logger is not None:
                     logger.info(
                         f"{optimizer.name}: population capacity grown to "
@@ -312,6 +360,7 @@ def optimize(
     logger=None,
     optimize_mean_variance: bool = False,
     stats: Optional[Dict[str, Any]] = None,
+    mesh=None,
     **kwargs,
 ):
     """Inner multi-objective optimization against the (surrogate) model,
@@ -322,7 +371,8 @@ def optimize(
     A ``termination`` criterion, when given, is the sole stopping rule on
     both branches (`_optimize_on_device`; per generation on the
     real-objective branch, reference ``dmosopt_tpu/moasmo.py:685-700``);
-    ``stats`` receives the surrogate branch's loop statistics.
+    ``stats`` receives the surrogate branch's loop statistics; ``mesh``
+    shards the surrogate branch's loop (`_optimize_on_device`).
 
     The numpy stream of ``local_random`` is consumed in the reference's
     order: loop generator, initial design, optimizer state.
@@ -362,7 +412,7 @@ def optimize(
             optimizer, eval_fn, num_generations, generator,
             termination=termination,
             termination_check_interval=termination_check_interval,
-            logger=logger, stats=stats,
+            logger=logger, stats=stats, mesh=mesh,
         )
         x_new, y_new = [x_dev], [y_dev]
         gen_indexes.extend(
@@ -528,6 +578,7 @@ def train(
     surrogate_refit=None,
     device=None,
     telemetry=None,
+    mesh=None,
 ):
     """Fit the objective surrogate on feasible, deduplicated data
     (reference: dmosopt/MOASMO.py:473-532; ``dmosopt_tpu/moasmo.py:905-945``).
@@ -548,7 +599,11 @@ def train(
     (`_sparse_kwargs`: ``dtype`` and the exact-GP knobs go); ``device``
     goes in apart from them. ``surrogate_return_mean_variance`` makes the
     model's ``evaluate`` answer (mean, variance). ``telemetry`` feeds the
-    refit controller's counters and events."""
+    refit controller's counters and events. A ``mesh`` goes to a
+    surrogate whose constructor names it (the exact-GP family: restarts
+    over a ``"model"`` axis, sharded predicts, and with
+    ``surrogate_method_kwargs={"surrogate_mesh": ...}`` the row-sharded
+    fit; ``dmosopt_tpu/moasmo.py:902-910``)."""
     x = np.asarray(Xinit).copy()
     y = np.asarray(Yinit).copy()
     n_total = x.shape[0]
@@ -574,6 +629,16 @@ def train(
     cls = resolve(routed_name, default_surrogate_methods)
     if routed_name != surrogate_method_name:
         kwargs = _sparse_kwargs(cls, kwargs, routed_name, logger)
+
+    if mesh is not None and "mesh" not in kwargs:
+        # walk the MRO: subclasses like EGP_Matern take (*args, **kwargs)
+        # and delegate to a base whose __init__ names mesh
+        if any(
+            "mesh" in inspect.signature(c.__init__).parameters
+            for c in type.mro(cls)
+            if "__init__" in c.__dict__
+        ):
+            kwargs["mesh"] = mesh
 
     def builder(**overrides):
         return cls(
@@ -696,6 +761,7 @@ def epoch(
     file_path=None,
     device=None,
     telemetry=None,
+    mesh=None,
 ):
     """One MO-ASMO epoch as a host-side generator
     (reference: dmosopt/MOASMO.py:196-470).
@@ -741,7 +807,7 @@ def epoch(
     ``gp_fit``, ``ea_scan`` and ``resample`` spans, the ``train`` and
     ``optimize`` phases and the ``resample`` event
     (``dmosopt_tpu/moasmo.py:1113-1259``); None keeps the epoch free of
-    telemetry calls.
+    telemetry calls. ``mesh`` goes to `train` and `optimize`.
     """
     nInput = len(param_names)
     nOutput = len(objective_names)
@@ -809,7 +875,7 @@ def epoch(
                 surrogate_method_kwargs=surrogate_method_kwargs,
                 surrogate_return_mean_variance=optimize_mean_variance,
                 logger=logger, info=info, surrogate_refit=surrogate_refit,
-                device=device, telemetry=telemetry,
+                device=device, telemetry=telemetry, mesh=mesh,
             )
             _synchronize(device)
             stats["train_s"] = time.perf_counter() - t0
@@ -860,7 +926,7 @@ def epoch(
         num_generations, optimizer, mdl, nInput, nOutput, xlb, xub,
         initial=(x_0, y_0), popsize=pop, local_random=local_random,
         termination=termination, logger=logger, stats=stats,
-        optimize_mean_variance=optimize_mean_variance,
+        optimize_mean_variance=optimize_mean_variance, mesh=mesh,
         **optimizer_kwargs_,
     )
     # a live span may not be held across a yield (the driver opens its

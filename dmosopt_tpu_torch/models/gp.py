@@ -3,12 +3,15 @@
 Port of ``dmosopt_tpu/models/gp.py``: the `matern52` / `rbf` kernels,
 the bounded reparameterization `_Bounds`, `_regularized_kernel`,
 `_apply_train_mask`, `_nmll`, `_scan_with_convergence`, `fit_gp_batch`
-(with ``warm_start``; no mesh), `fit_gp_shared`, `gp_predict`, the
+(with ``warm_start`` and the ``model``-axis restart split over a
+mesh), `fit_gp_shared`, `gp_predict`, the
 problems-axis fit and predict of the batched tenant core
 (`fit_gp_problems`, `gp_predict_problems`), the
 cross-epoch posterior updates (`extend_cholesky_rank_k`,
 `posterior_from_params`, `clone_with_fit`), `_prepare_training_data`,
-`_pad_to_bucket`, and the surrogates `GPR_Matern`, `GPR_RBF`,
+`_pad_to_bucket`, `_resolve_surrogate_mesh_spec`, and the surrogates
+`GPR_Matern` (with ``mesh`` and the routed ``surrogate_mesh`` fit of
+`models.gp_sharded`), `GPR_RBF`,
 `EGP_Matern` and `MEGP_Matern` with the ``predictor`` options
 (``"solve"``, ``"matmul"``, ``"nystrom"``; `models/predictor.py`) and
 ``dtype="float64"``.
@@ -134,9 +137,9 @@ class GPFit:
     train_mask: torch.Tensor  # (N,) 1 = real training row, 0 = padding
     n_steps: Optional[int] = None  # Adam steps actually run
     best_start: Optional[torch.Tensor] = None  # (d,) winning restart index
-    # (d, N, N) whitening factor W = L⁻¹; a fit this package makes never
-    # carries it (the JAX package's mesh-sharded fit does, and `interop`
-    # carries it over). Any posterior update that changes L drops it.
+    # (d, N, N) whitening factor W = L⁻¹, carried by a mesh-sharded fit
+    # (`gp_sharded.fit_gp_sharded`, or the JAX package's through
+    # `interop`); any posterior update that changes L drops it.
     whitened: Optional[torch.Tensor] = None
 
 
@@ -372,6 +375,8 @@ def fit_gp_batch(
     convergence_tol="auto",
     convergence_check_every: Optional[int] = None,
     warm_start: Optional[Tuple] = None,
+    mesh=None,
+    model_axis: str = "model",
 ) -> GPFit:
     """Fit d independent GPs with S random restarts each (reference
     `fit_gp_batch`, gp.py:287). The (S, d) grid of NMLLs shares one
@@ -386,11 +391,26 @@ def fit_gp_batch(
     ``warm_start`` is an ``(amp, ls, noise)`` triple of shapes (d,),
     (d, L), (d,) from a previous converged fit (gp.py:305, :371-385):
     restart 0 then starts exactly there and the others are jittered
-    around it by the same draws as a cold fit."""
+    around it by the same draws as a cold fit.
+
+    With a ``mesh`` whose ``model_axis`` size divides ``n_starts``
+    (gp.py:343-405), each rank of that axis runs the Adam loop of its
+    block of restarts (every rank draws the whole grid, so the restarts
+    are the unsplit fit's); the convergence checks read the winner over
+    all ranks (one ``all_reduce(MIN)`` a check), and the ranks gather
+    every restart's best values and parameters before the winner per
+    objective is kept, so every rank returns the same fit."""
+    split = None
+    if mesh is not None and model_axis in (mesh.mesh_dim_names or ()):
+        from dmosopt_tpu_torch.parallel.mesh import axis_size
+
+        W = axis_size(mesh, model_axis)
+        if W > 1 and n_starts % W == 0:
+            split = (mesh, model_axis, W)
     return _fit_gp(
         generator, X, Y, train_mask, lengthscale_bounds, amplitude_bounds,
         noise_bounds, kernel, n_starts, n_iter, learning_rate, ard, rel_jitter,
-        convergence_tol, convergence_check_every, warm_start,
+        convergence_tol, convergence_check_every, warm_start, split,
     )
 
 
@@ -440,34 +460,20 @@ def fit_gp_problems(
                    *(defaults[k] for k in keys), None)
 
 
-def _fit_gp(
-    generator, X, Y, train_mask, lengthscale_bounds, amplitude_bounds,
-    noise_bounds, kernel, n_starts, n_iter, learning_rate, ard, rel_jitter,
-    convergence_tol, convergence_check_every, warm_start,
-) -> GPFit:
-    """`fit_gp_batch`'s math for X (N, n) and one generator, or, with a
-    leading problems axis, X (P, N, n) and a list of P generators. The
-    (restart, objective) cells get their own axes after the problems
-    axis; inputs and masks are reshaped to broadcast over them."""
-    lead = tuple(X.shape[:-2])
-    N, n = X.shape[-2:]
-    dt, dev = X.dtype, X.device
-    if train_mask is not None:
-        Y = Y * train_mask[..., None].to(Y.dtype)
-    d = Y.shape[-1]
-    convergence_tol, convergence_check_every = _resolve_convergence_defaults(
-        d, convergence_tol, convergence_check_every
-    )
-    Lls = n if ard else 1
-    if rel_jitter is None:
-        rel_jitter = _default_rel_jitter(dt)
+def _fit_bounds(lengthscale_bounds, amplitude_bounds, noise_bounds, dt, dev):
+    """The (amplitude, lengthscale, noise) `_Bounds` of a fit."""
+    return (_make_bounds(amplitude_bounds, dt, dev),
+            _make_bounds(lengthscale_bounds, dt, dev),
+            _make_bounds(noise_bounds, dt, dev))
 
-    b_amp = _make_bounds(amplitude_bounds, dt, dev)
-    b_ls = _make_bounds(lengthscale_bounds, dt, dev)
-    b_noise = _make_bounds(noise_bounds, dt, dev)
-    bounds3 = (b_amp, b_ls, b_noise)
-    kernel_fn = _KERNELS[kernel]
 
+def _restart_grid(generator, lead, n_starts, d, Lls, bounds3, warm_start, dt, dev):
+    """The unconstrained (u_amp, u_ls, u_noise) restart grid of a fit,
+    shapes (*lead, S, d), (*lead, S, d, Lls), (*lead, S, d): restart 0
+    at the anchors (the reference's amp 1.0, ls 0.5, noise 1e-6, or
+    ``warm_start``), the others jittered by ``2 * N(0, 1)`` draws taken
+    from ``generator`` (one generator, or one per problem of ``lead``)
+    in the order amplitude, lengthscale, noise."""
     anchors = (1.0, 0.5, 1e-6) if warm_start is None else warm_start
 
     def init(b, value, shape):
@@ -481,11 +487,9 @@ def _fit_gp(
             torch.randn(shape, generator=g, out=out[i])
         return 2.0 * out
 
-    def cells(t, k):  # t (*lead, ...) -> (*lead, 1 x k, ...)
-        return t.reshape(lead + (1,) * k + tuple(t.shape[len(lead):]))
-
+    b_amp, b_ls, b_noise = bounds3
     start_mask = (torch.arange(n_starts, device=dev) > 0).to(dt)
-    params = [
+    return [
         init(b_amp, anchors[0], lead + (n_starts, d))
         + start_mask[:, None] * jitter((n_starts, d)),
         init(b_ls, anchors[1], lead + (n_starts, d, Lls))
@@ -493,16 +497,68 @@ def _fit_gp(
         init(b_noise, anchors[2], lead + (n_starts, d))
         + start_mask[:, None] * jitter((n_starts, d)),
     ]
+
+
+def _fit_gp(
+    generator, X, Y, train_mask, lengthscale_bounds, amplitude_bounds,
+    noise_bounds, kernel, n_starts, n_iter, learning_rate, ard, rel_jitter,
+    convergence_tol, convergence_check_every, warm_start, split=None,
+) -> GPFit:
+    """`fit_gp_batch`'s math for X (N, n) and one generator, or, with a
+    leading problems axis, X (P, N, n) and a list of P generators. The
+    (restart, objective) cells get their own axes after the problems
+    axis; inputs and masks are reshaped to broadcast over them.
+    ``split`` (mesh, axis, axis size) fits each rank's block of the
+    restarts and gathers them before the winner is picked."""
+    lead = tuple(X.shape[:-2])
+    N, n = X.shape[-2:]
+    dt, dev = X.dtype, X.device
+    if train_mask is not None:
+        Y = Y * train_mask[..., None].to(Y.dtype)
+    d = Y.shape[-1]
+    convergence_tol, convergence_check_every = _resolve_convergence_defaults(
+        d, convergence_tol, convergence_check_every
+    )
+    Lls = n if ard else 1
+    if rel_jitter is None:
+        rel_jitter = _default_rel_jitter(dt)
+
+    bounds3 = _fit_bounds(lengthscale_bounds, amplitude_bounds, noise_bounds, dt, dev)
+    b_amp, b_ls, b_noise = bounds3
+    kernel_fn = _KERNELS[kernel]
+    params = _restart_grid(generator, lead, n_starts, d, Lls, bounds3, warm_start, dt, dev)
+
+    def cells(t, k):  # t (*lead, ...) -> (*lead, 1 x k, ...)
+        return t.reshape(lead + (1,) * k + tuple(t.shape[len(lead):]))
+
     Xc, Yc = cells(X, 2), cells(Y, 1)
     mc = None if train_mask is None else cells(train_mask, 2)
-    vals_shape = lead + (n_starts, d)
+    winner = lambda v: torch.amin(v, dim=-2)  # noqa: E731
+    if split is not None:
+        # this rank's block of restarts; every convergence check reads
+        # the winner over all ranks' restarts, so the ranks stop together
+        from dmosopt_tpu_torch.parallel.mesh import all_reduce, axis_index
+
+        mesh, axis, W = split
+        S_loc = n_starts // W
+        a = axis_index(mesh, axis) * S_loc
+        params = [t[a:a + S_loc] for t in params]
+        winner = lambda v: all_reduce(  # noqa: E731
+            torch.amin(v, dim=-2), mesh, axis, op=torch.distributed.ReduceOp.MIN)
+    vals_shape = lead + (params[0].shape[len(lead)], d)
     best_params, final, n_steps = _minimize(
         params,
         lambda *leaves: _nmll(GPParams(*leaves), bounds3, Xc, Yc, kernel_fn,
                               rel_jitter, mc),
         vals_shape, learning_rate, n_iter, convergence_tol,
-        convergence_check_every, lambda v: torch.amin(v, dim=-2),
+        convergence_check_every, winner,
     )
+    if split is not None:
+        # every rank's restarts, in restart order
+        from dmosopt_tpu_torch.parallel.mesh import all_gather
+
+        final = all_gather(final, mesh, axis)
+        best_params = [all_gather(t, mesh, axis) for t in best_params]
     best_start = torch.argmin(final, dim=-2)  # (*lead, d)
     k = len(lead)
 
@@ -843,6 +899,36 @@ def _resolve_predictor_spec(
     )
 
 
+def _resolve_surrogate_mesh_spec(spec):
+    """Validate and normalize the exact-GP family's ``surrogate_mesh``
+    option (gp.py:928-958): None or False turns the sharded fit off (the
+    single-device fit is untouched), True turns it on with the defaults,
+    a dict overrides ``min_points`` (real training rows from which the
+    fit is routed), ``tile`` (the Cholesky panel width, None:
+    `gp_sharded.default_chol_tile`) and ``axis`` (the mesh axis, None:
+    the mesh's first)."""
+    if spec is None or spec is False:
+        return None
+    out = {"min_points": 4096, "tile": None, "axis": None}
+    if spec is True:
+        return out
+    if isinstance(spec, dict):
+        unknown = sorted(set(spec) - set(out))
+        if unknown:
+            raise ValueError(
+                f"surrogate_mesh keys {unknown} not understood; "
+                f"expected a subset of {sorted(out)}"
+            )
+        out.update(spec)
+        out["min_points"] = int(out["min_points"])
+        if out["tile"] is not None:
+            out["tile"] = int(out["tile"])
+        return out
+    raise TypeError(
+        f"surrogate_mesh must be None, bool, or dict; got {type(spec)!r}"
+    )
+
+
 class SurrogateBase:
     """The surrogate surface of every surrogate family (reference
     ``SurrogateMixin``, gp.py:959-983): unit-box x normalization and the
@@ -898,7 +984,7 @@ class SurrogateMixin(SurrogateBase):
             from dmosopt_tpu_torch.models.predictor import GPPredictor
 
             self._predictor_obj = GPPredictor(
-                self.fit, self.kernel,
+                self.fit, self.kernel, mesh=getattr(self, "_mesh", None),
                 rel_jitter=getattr(self, "_rel_jitter", None),
                 **self._predictor_spec,
             )
@@ -940,9 +1026,17 @@ class GPR_Matern(SurrogateMixin):
     hyperparameters from batched multi-start Adam (from ``warm_start``
     when given), predictions through the ``predictor`` regime.
     ``dtype="float64"`` gives float64 tensors, no relative jitter.
-    ``device`` None means CUDA. Meshes (``mesh``, ``surrogate_mesh``)
-    raise `NotImplementedError`; ``optimizer`` is accepted and ignored,
-    as the JAX package ignores it."""
+    ``device`` None means CUDA. ``optimizer`` is accepted and ignored,
+    as the JAX package ignores it.
+
+    ``mesh`` (a `parallel.mesh.create_mesh` mesh) splits the restarts
+    over its ``"model"`` axis (`fit_gp_batch`) and the predictor's
+    queries over its first axis (``query_sharding``, the matmul and
+    Nyström regimes). ``surrogate_mesh`` opts in to the row-sharded
+    tiled-Cholesky fit (`gp_sharded.fit_gp_sharded`) from
+    ``min_points`` real rows on (`_resolve_surrogate_mesh_spec`); a
+    sharded fit whose NMLL is not finite is discarded for the
+    single-device fit, logged and counted (`_try_fit_sharded`)."""
 
     kernel = "matern52"
     anisotropic_default = False
@@ -985,14 +1079,9 @@ class GPR_Matern(SurrogateMixin):
     ):
         # ``optimizer`` is taken and never read, as in the JAX package:
         # every fit runs Adam
-        unported = {
-            "mesh": mesh is not None,
-            "surrogate_mesh": surrogate_mesh not in (None, False),
-        }
-        bad = sorted(k for k, v in unported.items() if v)
-        if bad:
-            raise NotImplementedError(f"GPR_Matern options not ported: {bad}")
         dt = _resolve_dtype(dtype)
+        self._mesh = mesh
+        self._shard_spec = _resolve_surrogate_mesh_spec(surrogate_mesh)
         spec = _resolve_predictor_spec(
             predictor, nystrom_points, nystrom_probe_points,
             nystrom_mean_tol, nystrom_var_ratio_tol,
@@ -1002,6 +1091,7 @@ class GPR_Matern(SurrogateMixin):
         X, Yn, y_mean, y_std = _prepare_training_data(
             self, xin, yin, nInput, nOutput, xlb, xub, nan, top_k
         )
+        n_real = X.shape[0]
         if anisotropic is None:
             anisotropic = self.anisotropic_default
         X, Yn, tmask = _pad_to_bucket(X, Yn)
@@ -1028,10 +1118,11 @@ class GPR_Matern(SurrogateMixin):
         # the fit's inputs as the host holds them (same rounding as the
         # device copy): the refit controller's append check reads these
         self._X_host = X.astype(np.float64 if dt == torch.float64 else np.float32)
-        fit = fit_gp_batch(
-            as_torch_generator(seed, dev),
+        args = (
             torch.as_tensor(self._X_host, device=dev),
             torch.as_tensor(Yn, dtype=dt, device=dev),
+        )
+        common = dict(
             train_mask=torch.as_tensor(tmask, dtype=dt, device=dev),
             lengthscale_bounds=tuple(length_scale_bounds),
             amplitude_bounds=tuple(constant_kernel_bounds),
@@ -1046,10 +1137,71 @@ class GPR_Matern(SurrogateMixin):
             convergence_check_every=convergence_check_every,
             warm_start=warm_start,
         )
+        fit = shard_info = None
+        if self._shard_spec is not None and mesh is not None:
+            fit, shard_info = self._try_fit_sharded(seed, args, n_real, mesh, common)
+        if fit is None:
+            fit = fit_gp_batch(as_torch_generator(seed, dev), *args, mesh=mesh, **common)
         fit.y_mean = torch.as_tensor(y_mean, dtype=dt, device=dev)
         fit.y_std = torch.as_tensor(y_std, dtype=dt, device=dev)
         self.fit = fit
         self.fit_info = _gp_fit_info(fit, n_iter)
+        if shard_info:
+            self.fit_info.update(shard_info)
+
+    def _try_fit_sharded(self, seed, args, n_real, mesh, common):
+        """The row-sharded fit (`gp_sharded.fit_gp_sharded`) when the
+        ``surrogate_mesh`` spec, the archive size and the mesh and bucket
+        shapes allow it (gp.py:1033-1140). A tile that does not divide
+        the bucket gives way to `default_chol_tile`, with a warning. A
+        fit whose NMLL is not finite is discarded (counted in
+        ``gp_shard_fallbacks_total``, logged) and the caller fits on one
+        device instead: the routed path may fail, it is never served
+        failed. A fit from the same seed draws the same restarts either
+        way. Returns ``(fit or None, fit_info extras or None)``."""
+        import time as _time
+
+        from dmosopt_tpu_torch.models import gp_sharded
+        from dmosopt_tpu_torch.parallel.mesh import axis_size
+
+        spec = self._shard_spec
+        X = args[0]
+        P = X.shape[0]
+        axis = spec["axis"] or mesh.mesh_dim_names[0]
+        if n_real < spec["min_points"] or not gp_sharded.mesh_compatible(mesh, axis, P):
+            return None, None
+        tile = spec["tile"]
+        if tile is None or tile < 1 or P % tile:
+            if tile is not None and self.logger is not None:
+                self.logger.warning(
+                    f"surrogate_mesh: tile {tile} does not divide the "
+                    f"padding bucket {P}; using {gp_sharded.default_chol_tile(P)}"
+                )
+            tile = gp_sharded.default_chol_tile(P)
+        n_devices = axis_size(mesh, axis)
+        t0 = _time.perf_counter()
+        fit = gp_sharded.fit_gp_sharded(
+            as_torch_generator(seed, self.device), *args,
+            mesh=mesh, shard_axis=axis, tile=tile,
+            # the solve predictor never reads W = L⁻¹: gathering it would
+            # double every rank's share of the result
+            gather_whitened=self._predictor_spec["mode"] != "solve",
+            **common,
+        )
+        ok = bool(torch.isfinite(fit.nmll).all())
+        wall = _time.perf_counter() - t0
+        gp_sharded.record_sharded_fit(
+            ok, wall, n_devices, tile, n_real, P, int(args[1].shape[1])
+        )
+        if not ok:
+            if self.logger is not None:
+                self.logger.warning(
+                    f"surrogate_mesh: sharded fit at N={n_real} (bucket {P}, "
+                    f"{n_devices} devices) produced a non-finite NMLL; fitting "
+                    f"on one device instead"
+                )
+            return None, None
+        return fit, {"sharded": True, "shard_devices": n_devices, "shard_tile": tile}
 
 
 class GPR_RBF(GPR_Matern):

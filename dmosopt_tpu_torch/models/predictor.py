@@ -39,13 +39,19 @@ initial design's) is timed into ``gp_predict_seconds``, synchronizing
 the device first, as the JAX package times its eager calls; predicts
 inside the loop are not (`telemetry.hooks`).
 
-Not ported: ``query_sharding`` (mesh-sharded queries; it waits for the
-port's mesh support). Caches are derived state and never persisted.
+``query_sharding`` (a `parallel.mesh.population_sharding`; the
+predictor builds one over its mesh's first axis for the matmul and
+Nyström regimes, predictor.py:116-131, :359-365) splits a predict's
+queries over the mesh: each rank predicts its block of rows and one
+``all_gather`` an output returns them in order, so the predict inside a
+mesh run's generation scales over the ranks with the cache replicated.
+Caches are derived state and never persisted.
 """
 
 from __future__ import annotations
 
 import time
+from functools import partial
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -107,12 +113,27 @@ def build_whitened_cache(fit: GPFit) -> torch.Tensor:
     return torch.linalg.solve_triangular(fit.L, eye, upper=False)
 
 
+def _sharded(predict, Xq, query_sharding):
+    """``predict(Xq)`` with the queries split over ``query_sharding``'s
+    axis (each rank's block, gathered in order), or whole."""
+    if query_sharding is None:
+        return predict(Xq)
+    from dmosopt_tpu_torch.parallel.mesh import gather_rows
+
+    return gather_rows(predict, Xq, query_sharding.mesh, query_sharding.axis)
+
+
 def gp_predict_matmul(fit: GPFit, W: torch.Tensor, Xq: torch.Tensor,
-                      kernel: str = "matern52"):
+                      kernel: str = "matern52", query_sharding=None):
     """Posterior mean and variance with the variance as a batched matrix
     product (reference predictor.py:117): ``W Ks`` equals the ``L⁻¹ Ks``
     that `gp_predict` back-substitutes for; the mean is the same
-    ``Ksᵀα``. Returns ((M, d), (M, d))."""
+    ``Ksᵀα``. ``query_sharding`` splits the queries over a mesh axis.
+    Returns ((M, d), (M, d))."""
+    return _sharded(partial(_predict_matmul, fit, W, kernel=kernel), Xq, query_sharding)
+
+
+def _predict_matmul(fit: GPFit, W: torch.Tensor, Xq: torch.Tensor, kernel: str):
     Ks = _KERNELS[kernel](fit.X, Xq, fit.ls, fit.amp)  # (d, P, M)
     Ks = Ks * fit.train_mask[:, None].to(Ks.dtype)
     mean = torch.matmul(Ks.mT, fit.alpha[..., None])[..., 0]
@@ -194,9 +215,14 @@ def build_nystrom_cache(fit: GPFit, z_idx: torch.Tensor, kernel: str,
 
 
 def gp_predict_nystrom(cache: NystromCache, Xq: torch.Tensor,
-                       kernel: str = "matern52"):
+                       kernel: str = "matern52", query_sharding=None):
     """Posterior mean and variance from the distilled cache (reference
-    predictor.py:264): matrix products against (m, m) factors only."""
+    predictor.py:264): matrix products against (m, m) factors only.
+    ``query_sharding`` splits the queries over a mesh axis."""
+    return _sharded(partial(_predict_nystrom, cache, kernel=kernel), Xq, query_sharding)
+
+
+def _predict_nystrom(cache: NystromCache, Xq: torch.Tensor, kernel: str):
     Kq = _KERNELS[kernel](cache.Z, Xq, cache.ls, cache.amp)  # (d, m, M)
     phi = torch.matmul(cache.Wzz, Kq)
     mean = torch.matmul(phi.mT, cache.w[..., None])[..., 0]
@@ -230,6 +256,7 @@ class GPPredictor:
         kernel: str,
         mode: str = "solve",
         *,
+        mesh=None,
         rel_jitter: Optional[float] = None,
         nystrom_points: int = 512,
         nystrom_probe_points: int = 256,
@@ -251,6 +278,13 @@ class GPPredictor:
             nystrom_mean_tol=float(nystrom_mean_tol),
             nystrom_var_ratio_tol=float(nystrom_var_ratio_tol),
         )
+        # a mesh splits the matmul and Nyström predicts' queries over its
+        # first axis (the solve regime stays whole, as in the reference)
+        self._query_sharding = None
+        if mesh is not None and mode != "solve":
+            from dmosopt_tpu_torch.parallel.mesh import population_sharding
+
+            self._query_sharding = population_sharding(mesh, mesh.mesh_dim_names[0])
         self.whitened = None  # (d, P, P) W = L⁻¹ (matmul regime)
         self.nystrom = None  # NystromCache (nystrom regime)
         self.distill_error: Optional[dict] = None
@@ -268,8 +302,8 @@ class GPPredictor:
                 _synchronize(self.fit.L)
                 return
             self.regime = "matmul"  # the probe's fall-back
-        # a fit carried over from the JAX package's sharded fit already
-        # holds W = L⁻¹
+        # a mesh-sharded fit (this package's, or the JAX package's carried
+        # over) already holds W = L⁻¹: adopt it, no rebuild
         W = self.fit.whitened
         self.whitened = build_whitened_cache(self.fit) if W is None else W
         _synchronize(self.whitened)
@@ -359,9 +393,11 @@ class GPPredictor:
         tel = None if in_generation_loop() else _TELEMETRY
         t0 = time.perf_counter() if tel else None
         if self.regime == "matmul":
-            out = gp_predict_matmul(self.fit, self.whitened, Xq, kernel=self.kernel)
+            out = gp_predict_matmul(self.fit, self.whitened, Xq, kernel=self.kernel,
+                                    query_sharding=self._query_sharding)
         elif self.regime == "nystrom":
-            out = gp_predict_nystrom(self.nystrom, Xq, kernel=self.kernel)
+            out = gp_predict_nystrom(self.nystrom, Xq, kernel=self.kernel,
+                                     query_sharding=self._query_sharding)
         else:
             out = gp_predict(self.fit, Xq, kernel=self.kernel)
         if tel:

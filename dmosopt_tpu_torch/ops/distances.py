@@ -112,31 +112,31 @@ def pairwise_distances(X: torch.Tensor, Y=None, row_chunk=None) -> torch.Tensor:
 
 
 def _duplicate_mask_dense(X, eps, mask):
-    n = X.shape[0]
-    D = torch.sqrt(torch.sum((X[:, None, :] - X[None, :, :]) ** 2, dim=-1))
+    n = X.shape[-2]
+    D = torch.sqrt(torch.sum((X[..., :, None, :] - X[..., None, :, :]) ** 2, dim=-1))
     iu = torch.ones((n, n), dtype=torch.bool, device=X.device).triu(1)  # j > i
     near = iu & ~torch.isnan(D) & (D <= eps)
     if mask is not None:
         valid = mask.to(torch.bool)
-        near = near & valid[:, None] & valid[None, :]
-    return near.any(dim=0)
+        near = near & valid[..., :, None] & valid[..., None, :]
+    return near.any(dim=-2)
 
 
 def _duplicate_mask_chunked(X, eps, mask, chunk: int):
-    n = X.shape[0]
-    valid = (torch.ones(n, dtype=torch.bool, device=X.device) if mask is None
-             else mask.to(torch.bool))
+    n = X.shape[-2]
+    valid = (torch.ones(X.shape[:-1], dtype=torch.bool, device=X.device)
+             if mask is None else mask.to(torch.bool))
     col = torch.arange(n, device=X.device)
-    dup = torch.zeros(n, dtype=torch.bool, device=X.device)
+    dup = torch.zeros(X.shape[:-1], dtype=torch.bool, device=X.device)
     for i0 in range(0, n, chunk):
-        Xi = X[i0:i0 + chunk]
+        Xi = X[..., i0:i0 + chunk, :]
         # exact differences (not the matmul identity), so identical rows
         # are exactly 0 apart; (chunk, n) live, never (n, n, f)
-        D = torch.sqrt(torch.sum((Xi[:, None, :] - X[None, :, :]) ** 2, dim=-1))
+        D = torch.sqrt(torch.sum((Xi[..., :, None, :] - X[..., None, :, :]) ** 2, dim=-1))
         gi = col[i0:i0 + chunk]
         near = (gi[:, None] < col[None, :]) & ~torch.isnan(D) & (D <= eps)
-        near = near & valid[i0:i0 + chunk, None] & valid[None, :]
-        dup = dup | near.any(dim=0)
+        near = near & valid[..., i0:i0 + chunk, None] & valid[..., None, :]
+        dup = dup | near.any(dim=-2)
     return dup
 
 
@@ -148,8 +148,8 @@ def duplicate_mask(X: torch.Tensor, eps: float = 1e-16, mask=None,
     ignored, and rows with ``mask`` False neither mark nor are marked.
     Up to one chunk (1024 rows by default) the mask is one dense
     comparison; larger inputs stream row blocks so (n, n, f) never
-    exists."""
-    B = int(chunk) if chunk is not None else _default_row_chunk(X.shape[0])
-    if B >= X.shape[0]:
+    exists. A leading batch axis (S, n, f) marks each set on its own."""
+    B = int(chunk) if chunk is not None else _default_row_chunk(X.shape[-2])
+    if B >= X.shape[-2]:
         return _duplicate_mask_dense(X, eps, mask)
     return _duplicate_mask_chunked(X, eps, mask, B)

@@ -47,6 +47,9 @@ tile pairs.
 
 from __future__ import annotations
 
+import contextlib
+import threading
+
 import torch
 
 # relaxation steps between convergence checks (each check is one host sync)
@@ -58,6 +61,24 @@ _BLOCK_ELEMENTS = 1 << 26
 
 # the run's telemetry, set by `run()` for its duration (None: no calls)
 _TELEMETRY = None
+
+
+# a thread's rank route (`rank_route`): a mesh run's sharded rank
+_ROUTE = threading.local()
+
+
+@contextlib.contextmanager
+def rank_route(fn):
+    """Inside, `non_dominated_rank` of one set (Y of shape (n, d)) on
+    this thread is ``fn(Y, mask=mask)``: a mesh run's generation loop routes
+    its survival ranks to `parallel.mesh.non_dominated_rank_sharded`,
+    whose ranks equal this module's bit for bit."""
+    prev = getattr(_ROUTE, "fn", None)
+    _ROUTE.fn = fn
+    try:
+        yield
+    finally:
+        _ROUTE.fn = prev
 
 
 def set_rank_telemetry(tel) -> None:
@@ -188,8 +209,12 @@ def non_dominated_rank(Y: torch.Tensor, mask=None, stop_count=None,
         ``stop_count`` points be exact; the ranks here are exact
         everywhere, a legal refinement, so it is accepted and not used.
     block: column-block width of the relaxation (default `default_block`).
-    Returns int32 ranks of Y's leading shape.
+    Returns int32 ranks of Y's leading shape. Inside `rank_route` one
+    set is ranked by the route instead.
     """
+    route = getattr(_ROUTE, "fn", None)
+    if route is not None and Y.dim() == 2:
+        return route(Y, mask=mask)
     n = Y.shape[-2]
     r = torch.zeros(Y.shape[:-1], dtype=torch.int32, device=Y.device)
     if n == 0:

@@ -21,6 +21,20 @@ the JAX package's determinant and NaN guards choose the fallback.
 A generation's offspring step is one call of `ops.offspring` (one
 Triton kernel launch on a CUDA device), the same pair-slot scheme as
 NSGA-II's, with the pool drawn by tournament on (rank, -survival score).
+
+The state functions also take stacked states, as `optimizers.nsga2`'s
+do: every tensor with a leading (T,) tenants axis (per-tenant scalars
+(T,), bounds (T, n, 2)) and a sequence of T generators, each tenant's
+Gumbels and uniforms drawn from its own generator in the sequential
+order. Survival runs over the tenants axis with masks and no
+per-tenant loop; the greedy loop runs its N steps for the whole bucket
+(what ``jax.vmap`` of the JAX package's `fori_loop` does,
+``dmosopt_tpu/tenants.py:433-467``), and the bucket's offspring step is
+one launch. Reductions over the objectives are accumulated one
+objective at a time (`_dot_last`, `_pow_sum`), so a stacked tenant
+scores bit for bit as its own state does. Stacked states carry a fixed
+population size (the batched core routes adaptive population sizes to
+the sequential path).
 """
 
 from __future__ import annotations
@@ -39,6 +53,7 @@ from dmosopt_tpu_torch.ops import (
     offspring,
     tournament_selection,
 )
+from dmosopt_tpu_torch.ops.variation import draw_uniform
 
 _INF = float("inf")
 _INT32_MAX = torch.iinfo(torch.int32).max
@@ -49,19 +64,28 @@ _INT32_MAX = torch.iinfo(torch.int32).max
 _DENSE_SURVIVAL_MAX = 2048
 
 
+def _dot_last(a, b):
+    """``sum_k a[..., k] * b[..., k]``, accumulated one objective at a
+    time in index order: the same arithmetic whatever the leading shape,
+    so a stacked state scores bit for bit as each tenant's own."""
+    acc = a[..., 0] * b[..., 0]
+    for k in range(1, a.shape[-1]):
+        acc = acc + a[..., k] * b[..., k]
+    return acc
+
+
 def _point_to_line_distance(P, B):
-    """Distance of each row of P to the line through the origin along B
-    (reference AGEMOEA.py:344-353)."""
-    bb = torch.dot(B, B)
-    t = (P @ B) / bb
-    return torch.linalg.vector_norm(P - t[:, None] * B[None, :], dim=1)
+    """Distance of each row of P (..., m, d) to the line through the
+    origin along the constant B (d,) (reference AGEMOEA.py:344-353)."""
+    t = _dot_last(P, B) / torch.dot(B, B)
+    return torch.linalg.vector_norm(P - t[..., None] * B, dim=-1)
 
 
 def _find_corner_solutions(front, mask):
     """Indices of the extreme (corner) points per objective axis
     (reference AGEMOEA.py:356-376), masked: only rows with mask True are
-    eligible. Returns (d,) int64 indices."""
-    m, d = front.shape
+    eligible. ``front`` (..., m, d); returns (..., d) int64 indices."""
+    m, d = front.shape[-2:]
     W = 1e-6 + torch.eye(d, dtype=front.dtype, device=front.device)
     eligible = mask.clone()
     ar = torch.arange(m, device=front.device)
@@ -69,32 +93,40 @@ def _find_corner_solutions(front, mask):
     for i in range(d):
         dists = _point_to_line_distance(front, W[i])
         dists = torch.where(eligible, dists, _INF)
-        idx = torch.argmin(dists)
+        idx = torch.argmin(dists, dim=-1)
         indexes.append(idx)
-        eligible = eligible & (ar != idx)
-    return torch.stack(indexes)
+        eligible = eligible & (ar != idx[..., None])
+    return torch.stack(indexes, dim=-1)
+
+
+def _rows(a, idx):
+    """``a[..., idx, :]`` per leading index: rows ``idx`` (..., k) of
+    ``a`` (..., m, c) -> (..., k, c). One ``gather`` (one launch;
+    ``take_along_dim`` makes two on a CUDA device)."""
+    return torch.gather(a, -2, idx[..., None].expand(idx.shape + a.shape[-1:]))
 
 
 def _normalize(front, mask, extreme):
     """Hyperplane-intercept normalization of the first front with min-max
     fallback on degenerate systems (reference AGEMOEA.py:275-315)."""
-    d = front.shape[1]
-    E = front[extreme]  # (d, d)
-    fallback = torch.where(mask[:, None], front, -_INF).amax(dim=0)
+    d = front.shape[-1]
+    E = _rows(front, extreme)  # (..., d, d)
+    fallback = torch.where(mask[..., None], front, -_INF).amax(dim=-2)
     # guard the solve against singular matrices
     ok_det = torch.abs(torch.linalg.det(E)) > 1e-12
     eye = torch.eye(d, dtype=front.dtype, device=front.device)
-    E_safe = torch.where(ok_det, E, eye)
-    ones = torch.ones((d, 1), dtype=front.dtype, device=front.device)
-    hyperplane = torch.linalg.solve_ex(E_safe, ones).result[:, 0]
+    E_safe = torch.where(ok_det[..., None, None], E, eye)
+    ones = torch.ones(E.shape[:-1] + (1,), dtype=front.dtype, device=front.device)
+    hyperplane = torch.linalg.solve_ex(E_safe, ones).result[..., 0]
     bad = (
         ~ok_det
-        | torch.isnan(hyperplane).any()
-        | torch.isinf(hyperplane).any()
-        | (hyperplane < 0).any()
+        | torch.isnan(hyperplane).any(-1)
+        | torch.isinf(hyperplane).any(-1)
+        | (hyperplane < 0).any(-1)
     )
     normalization = torch.where(
-        bad, fallback, 1.0 / torch.where(hyperplane == 0, 1.0, hyperplane)
+        bad[..., None], fallback,
+        1.0 / torch.where(hyperplane == 0, 1.0, hyperplane),
     )
     normalization = torch.where(
         torch.isnan(normalization) | torch.isinf(normalization), fallback,
@@ -108,15 +140,20 @@ def _normalize(front, mask, extreme):
 
 
 def _get_geometry(front, mask, extreme):
-    """Estimate the front geometry exponent p (reference AGEMOEA.py:324-341)."""
-    m, d = front.shape
+    """Estimate the front geometry exponent p (reference AGEMOEA.py:324-341);
+    (...,) for ``front`` (..., m, d)."""
+    d = front.shape[-1]
     dist = _point_to_line_distance(
         front, torch.ones((d,), dtype=front.dtype, device=front.device)
     )
     dist = torch.where(mask, dist, _INF)
-    dist = dist.index_fill(0, extreme, _INF)
-    index = torch.argmin(dist)
-    mean_coord = torch.mean(front[index, :])
+    dist = dist.scatter(-1, extreme, _INF)
+    index = torch.argmin(dist, dim=-1)
+    point = _rows(front, index[..., None])[..., 0, :]
+    acc = point[..., 0]
+    for k in range(1, d):
+        acc = acc + point[..., k]
+    mean_coord = acc / d
     p = torch.log(torch.full_like(mean_coord, d)) / torch.log(1.0 / mean_coord)
     p = torch.where(torch.isnan(p) | (p <= 0.1), 1.0, p)
     return torch.clamp(p, max=20.0)
@@ -125,8 +162,9 @@ def _get_geometry(front, mask, extreme):
 def _pow_sum(diff, p):
     """``sum_k |diff[..., k]| ** p`` over the last axis, one objective at
     a time in index order (the order XLA reduces the JAX package's sum
-    in; an ulp here can flip a greedy pick)."""
-    a = torch.abs(diff) ** p
+    in; an ulp here can flip a greedy pick). ``p`` broadcasts against
+    the result."""
+    a = torch.abs(diff) ** p[..., None]
     acc = a[..., 0]
     for k in range(1, a.shape[-1]):
         acc = acc + a[..., k]
@@ -134,7 +172,10 @@ def _pow_sum(diff, p):
 
 
 def _minkowski_to_point(Y, point, p):
-    return _pow_sum(Y - point[None, :], p) ** (1.0 / p)
+    """Minkowski-p distance of each row of Y (..., N, d) to ``point``
+    (..., d), with p (...,)."""
+    pe = p[..., None]
+    return _pow_sum(Y - point[..., None, :], pe) ** (1.0 / pe)
 
 
 def _greedy_scores(front_mask, selected, min1, min2, dist_col):
@@ -158,22 +199,28 @@ def _greedy_scores(front_mask, selected, min1, min2, dist_col):
       the fold of the picked column needs no guard;
     - ``min2' = min(min2, max(min1, dnew))`` is the JAX package's
       two-branch update written with one select less.
-    Returns the (N,) scores: inf on the corner solutions, the pick's sum
-    on the greedy picks, 0 elsewhere."""
-    N = front_mask.shape[0]
+
+    Stacked fronts (a leading (T,) axis on every operand) run the same N
+    steps together, as ``jax.vmap`` of the `fori_loop` does
+    (``dmosopt_tpu/tenants.py:433-467``): a tenant whose remaining set
+    empties early rides along, its steps picking nothing (every value
+    -inf, so the pick mask is empty) and its later folds never read.
+    Returns the (..., N) scores: inf on the corner solutions, the pick's
+    sum on the greedy picks, 0 elsewhere."""
+    N = front_mask.shape[-1]
     dev = front_mask.device
     ar = torch.arange(N, device=dev)
     crowd = torch.where(selected, _INF, 0.0).to(min1.dtype)
     remaining = front_mask & ~selected
-    n_sel0 = selected.sum()
+    n_sel0 = selected.sum(-1, keepdim=True)
     for i in range(N):
         if i < 2:
             val = min1 + torch.where(n_sel0 + i >= 2, min2, 0.0)
         else:
             val = min1 + min2
         val = torch.where(remaining, val, -_INF)
-        best = torch.argmax(val)
-        pick = (ar == best) & remaining
+        best = torch.argmax(val, dim=-1)
+        pick = (ar == best[..., None]) & remaining
         crowd = torch.where(pick, val, crowd)
         remaining = remaining ^ pick
         dnew = dist_col(best)
@@ -184,70 +231,77 @@ def _greedy_scores(front_mask, selected, min1, min2, dist_col):
 
 def _survival_score(y, front_mask, ideal):
     """Masked survival scores of the first front
-    (reference AGEMOEA.py:377-430). Returns (normalization, p, scores)
-    with scores zero outside the front."""
-    N, d = y.shape
-    m = front_mask.sum()
-    yfront = y - ideal[None, :]
+    (reference AGEMOEA.py:377-430), for ``y`` (..., N, d). Returns
+    (normalization (..., d), p (...,), scores (..., N)) with scores zero
+    outside the front."""
+    N, d = y.shape[-2:]
+    m = front_mask.sum(-1)
+    yfront = y - ideal[..., None, :]
 
     extreme = _find_corner_solutions(yfront, front_mask)
     normalization = _normalize(yfront, front_mask, extreme)
     # min-max fallback when the front is smaller than the objective count
     small = m < d
-    fallback_norm = torch.where(front_mask[:, None], yfront, -_INF).amax(dim=0)
+    fallback_norm = torch.where(front_mask[..., None], yfront, -_INF).amax(dim=-2)
     fallback_norm = torch.where(
         torch.isclose(fallback_norm, torch.zeros_like(fallback_norm),
                       rtol=1e-4, atol=1e-4),
         1.0, fallback_norm,
     )
-    normalization = torch.where(small, fallback_norm, normalization)
+    normalization = torch.where(small[..., None], fallback_norm, normalization)
 
-    ynfront = yfront / normalization
+    ynfront = yfront / normalization[..., None, :]
     p = torch.where(small, 1.0, _get_geometry(ynfront, front_mask, extreme))
+    pn = p[..., None]  # against (..., N)
 
     # Minkowski-p distances scaled by each point's norm, computed in the
     # JAX package's order (|diff| ** p summed over d, ** (1/p), divided by
     # the norm). Up to _DENSE_SURVIVAL_MAX candidates the (N, N) matrix
     # is built once; beyond it each greedy step computes the one column
     # it folds in, so neither (N, N) nor (N, N, d) exists.
-    nn = _pow_sum(ynfront, p) ** (1.0 / p)
+    nn = _pow_sum(ynfront, pn) ** (1.0 / pn)
     nn_div = torch.where(nn == 0, 1.0, nn)
     dense = N <= _DENSE_SURVIVAL_MAX
 
     if dense:
-        D = _pow_sum(ynfront[:, None, :] - ynfront[None, :, :], p) ** (1.0 / p)
-        D = D / nn_div[:, None]
+        pnn = pn[..., None]
+        D = _pow_sum(ynfront[..., :, None, :] - ynfront[..., None, :, :], pnn) ** (1.0 / pnn)
+        D = D / nn_div[..., :, None]
 
         def dist_col(j):
-            return D.index_select(1, j.reshape(1))[:, 0]
+            # D[..., :, j] for each leading index's j (...,)
+            idx = j[..., None, None].expand(D.shape[:-1] + (1,))
+            return torch.gather(D, -1, idx)[..., 0]
 
     else:
 
         def dist_col(j):
             # D[:, j]: each point's scaled Minkowski-p distance to point j
-            row = ynfront.index_select(0, j.reshape(1))
-            return _pow_sum(ynfront - row, p) ** (1.0 / p) / nn_div
+            row = _rows(ynfront, j[..., None])
+            return _pow_sum(ynfront - row, pn) ** (1.0 / pn) / nn_div
 
-    selected = torch.zeros(N, dtype=torch.bool, device=y.device)
-    selected = selected.index_fill(0, extreme, True) & front_mask
+    selected = torch.zeros(y.shape[:-1], dtype=torch.bool, device=y.device)
+    selected = selected.scatter(-1, extreme, True) & front_mask
 
     # each point's two smallest distances to the selected set
     if dense:
-        Dsel = torch.where(selected[None, :], D, _INF)
-        top2 = torch.topk(Dsel, 2, dim=1, largest=False).values
+        Dsel = torch.where(selected[..., None, :], D, _INF)
+        top2 = torch.topk(Dsel, 2, dim=-1, largest=False).values
     else:
         # seed from the corner-solution columns (the initial selected
         # set), deduplicated: a corner index repeated by the degenerate
         # path contributes one column, as it holds one in the full matrix
-        corner_cols = torch.stack([dist_col(extreme[k]) for k in range(d)])  # (d, N)
-        eq = extreme[:, None] == extreme[None, :]
-        first_occurrence = ~torch.tril(eq, diagonal=-1).any(dim=1)
-        col_live = selected[extreme] & first_occurrence
-        cols = torch.where(col_live[:, None], corner_cols, _INF).T  # (N, d)
+        corner_cols = torch.stack(
+            [dist_col(extreme[..., k]) for k in range(d)], dim=-2
+        )  # (..., d, N)
+        eq = extreme[..., :, None] == extreme[..., None, :]
+        first_occurrence = ~torch.tril(eq, diagonal=-1).any(dim=-1)
+        col_live = torch.gather(selected, -1, extreme) & first_occurrence
+        cols = torch.where(col_live[..., None], corner_cols, _INF).mT  # (..., N, d)
         if d < 2:
-            cols = torch.cat([cols, torch.full_like(cols, _INF)], dim=1)
-        top2 = torch.topk(cols, 2, dim=1, largest=False).values
-    min1, min2 = top2[:, 0], top2[:, 1]
+            cols = torch.cat([cols, torch.full_like(cols, _INF)], dim=-1)
+        top2 = torch.topk(cols, 2, dim=-1, largest=False).values
+    min1, min2 = top2[..., 0], top2[..., 1]
 
     crowd = _greedy_scores(front_mask, selected, min1, min2, dist_col)
     crowd = torch.where(front_mask, crowd, 0.0)
@@ -258,17 +312,19 @@ def environmental_selection(x, y, pop: int, x_keys=None, mask=None):
     """AGE-MOEA environmental selection over fixed-capacity tensors
     (reference AGEMOEA.py:433-501). Duplicate rows are masked out instead
     of removed; `mask` marks additional dead rows (the adaptive-population
-    alive mask). Returns (perm, rank, crowd) where perm[:pop] are the
-    survivors best-first."""
+    alive mask, or a bucket's padding). Returns (perm, rank, crowd) where
+    perm[..., :pop] are the survivors best-first. A leading (T,) axis on
+    ``x``, ``y`` (and ``mask``) selects each tenant's survivors on its
+    own, with no per-tenant loop."""
     dup = duplicate_mask(x, mask=mask)
     valid = ~dup if mask is None else (~dup & mask)
     rank = non_dominated_rank(y, mask=valid, stop_count=pop)
 
     front1 = (rank == 0) & valid
-    ideal = torch.where(front1[:, None], y, _INF).amin(dim=0)
+    ideal = torch.where(front1[..., None], y, _INF).amin(dim=-2)
 
     normalization, p, crowd = _survival_score(y, front1, ideal)
-    yn = y / normalization
+    yn = y / normalization[..., None, :]
     # later fronts: proximity to the ideal point (reference :469-471 —
     # the reference compares normalized yn against the unnormalized
     # ideal; kept for parity)
@@ -342,10 +398,12 @@ class AGEMOEA(MOEA):
             "adaptive_population_size": False,
         }
 
-    def _device_consts(self, dev):
+    def _device_consts(self, dev, lead=()):
         """The operator rates, per-gene distribution indices and fixed
         pool size as device tensors, made once per device: the offspring
-        step reads them from the device."""
+        step reads them from the device. ``lead`` (T,) for stacked states
+        broadcasts them over the tenants (stride-0 views, which the
+        bucket launch takes)."""
         poolsize = self.opt_params.poolsize
         key = (dev, poolsize)
         if self._consts is None or self._consts[0] != key:
@@ -366,7 +424,10 @@ class AGEMOEA(MOEA):
                 di_mutation=per_gene(self.opt_params.di_mutation),
                 pool_n=torch.tensor(poolsize, dtype=torch.int32, device=dev),
             ))
-        return self._consts[1]
+        c = self._consts[1]
+        if not lead:
+            return c
+        return {k: v.expand(tuple(lead) + tuple(v.shape)) for k, v in c.items()}
 
     def _x_keys(self, x):
         """The feasibility rank as the within-front key before crowding
@@ -378,28 +439,32 @@ class AGEMOEA(MOEA):
     # ------------------------------------------------------ state functions
 
     def initialize_state(self, generator, x, y, bounds, mask=None) -> AGEMOEAState:
+        """The initial survivors of (x, y); with a leading (T,) axis on
+        ``x``, ``y``, ``bounds`` and ``mask`` each tenant's on its own
+        (stacked states)."""
         P = self.capacity
         perm, rank, crowd = environmental_selection(
             x, y, P, x_keys=self._x_keys(x), mask=mask
         )
-        keep = perm[:P]
+        keep = perm[..., :P]
         return AGEMOEAState(
-            population_parm=x[keep],
-            population_obj=y[keep],
-            rank=rank[keep],
-            crowd_dist=crowd[keep],
+            population_parm=_rows(x, keep),
+            population_obj=_rows(y, keep),
+            rank=torch.gather(rank, -1, keep),
+            crowd_dist=torch.gather(crowd, -1, keep),
             bounds=bounds,
-            n_active=torch.tensor(min(self.popsize, P), dtype=torch.int32,
-                                  device=x.device),
+            n_active=torch.full(tuple(x.shape[:-2]), min(self.popsize, P),
+                                dtype=torch.int32, device=x.device),
         )
 
     def generate_strategy(self, generator, state: AGEMOEAState):
         pop = self.capacity
         poolsize = self.opt_params.poolsize
         npairs = pop // 2
-        xlb, xub = state.bounds[:, 0], state.bounds[:, 1]
+        xlb, xub = state.bounds[..., 0], state.bounds[..., 1]
         dev = state.population_parm.device
-        c = self._device_consts(dev)
+        lead = tuple(state.rank.shape[:-1])  # (T,) for stacked states
+        c = self._device_consts(dev, lead)
 
         if self.adaptive_population_size:
             active = torch.arange(pop, device=dev) < state.n_active
@@ -417,10 +482,10 @@ class AGEMOEA(MOEA):
         # one draw for the whole step: per pair slot the first parent's
         # pick, the shift to the second and the operator draw (r); per
         # gene the SBX and the two mutation uniforms (u)
-        n = state.population_parm.shape[1]
-        draws = torch.rand(3 * npairs * (n + 1), generator=generator, device=dev)
-        r = draws[: 3 * npairs].view(3, npairs)
-        u = draws[3 * npairs:].view(3, npairs, n)
+        n = state.population_parm.shape[-1]
+        draws = draw_uniform(generator, (3 * npairs * (n + 1),), dev)
+        r = draws[..., : 3 * npairs].view(*lead, 3, npairs)
+        u = draws[..., 3 * npairs:].view(*lead, 3, npairs, n)
         x_gen, _ = offspring(
             state.population_parm, pool_idx, r, u, pool_n, shift_hi,
             c["crossover_prob"], c["mutation_prob"], c["mutation_rate"],
@@ -431,8 +496,8 @@ class AGEMOEA(MOEA):
     def update_strategy(self, state: AGEMOEAState, x_gen, y_gen) -> AGEMOEAState:
         P = self.capacity
         dev = x_gen.device
-        x = torch.cat([state.population_parm, x_gen], dim=0)
-        y = torch.cat([state.population_obj, y_gen], dim=0)
+        x = torch.cat([state.population_parm, x_gen], dim=-2)
+        y = torch.cat([state.population_obj, y_gen], dim=-2)
         mask = None
         if self.adaptive_population_size:
             mask = torch.cat([
@@ -442,12 +507,12 @@ class AGEMOEA(MOEA):
         perm, rank, crowd = environmental_selection(
             x, y, P, x_keys=self._x_keys(x), mask=mask
         )
-        keep = perm[:P]
+        keep = perm[..., :P]
         state = state._replace(
-            population_parm=x[keep],
-            population_obj=y[keep],
-            rank=rank[keep],
-            crowd_dist=crowd[keep],
+            population_parm=_rows(x, keep),
+            population_obj=_rows(y, keep),
+            rank=torch.gather(rank, -1, keep),
+            crowd_dist=torch.gather(crowd, -1, keep),
         )
         if self.adaptive_population_size:
             new_n = adapt_population_size(

@@ -8,7 +8,7 @@ Port of ``dmosopt_tpu/parallel/evaluator.py``:
 - `TorchBatchEvaluator`, the counterpart of `JaxBatchEvaluator` (:550)
   (``jax_objective=True`` there, ``torch_objective=True`` here): the
   objective is a batched torch function, one call per problem per batch
-  on the run's device.
+  on the run's device, its rows split over a mesh when given one.
 
 Both return the reference worker protocol, ``{problem_id: result,
 "time": seconds}`` per request, from a blocking ``evaluate_batch`` and
@@ -519,23 +519,41 @@ class TorchBatchEvaluator:
     copied to the host and split per row. With several ``problem_ids``
     each round holds one request per problem, and every problem present
     in a batch gets one objective call of its stacked rows
-    (`_stack_problems`, ``:663``)."""
+    (`_stack_problems`, ``:663``). With a ``mesh`` (`parallel.mesh`)
+    the rows of each call are split over ``batch_axis`` (default: the
+    mesh's first axis), each rank evaluating its block, and gathered in
+    order (``dmosopt_tpu/parallel/evaluator.py:556-590``); every rank of
+    the run evaluates the same batches."""
 
     #: the ``backend`` label of its batch counters
     BACKEND = "torch"
 
-    def __init__(self, batch_fun: Callable, device, problem_ids=None):
+    def __init__(self, batch_fun: Callable, device, problem_ids=None, mesh=None,
+                 batch_axis: Optional[str] = None):
         self.batch_fun = batch_fun
         self.device = torch.device(device)
         self.problem_ids = list(problem_ids) if problem_ids is not None else [0]
         self.telemetry = None  # attached by the driver when enabled
+        self.mesh = mesh
+        # the mesh's leading axis by default, whatever its name
+        # (``dmosopt_tpu/parallel/evaluator.py:579-583``)
+        self.batch_axis = (batch_axis or mesh.mesh_dim_names[0]) if mesh is not None else None
 
-    def _launch(self, X: np.ndarray) -> Tuple[torch.Tensor, ...]:
-        x = torch.as_tensor(X, dtype=torch.float32, device=self.device)
+    def _call(self, x: torch.Tensor) -> Tuple[torch.Tensor, ...]:
         out = self.batch_fun(x)
         if not isinstance(out, tuple):
             out = (out,)
         return tuple(torch.as_tensor(o).detach() for o in out)
+
+    def _launch(self, X: np.ndarray) -> Tuple[torch.Tensor, ...]:
+        x = torch.as_tensor(X, dtype=torch.float32, device=self.device)
+        if self.mesh is None:
+            return self._call(x)
+        # each rank evaluates its block of rows; the outputs come back
+        # gathered in row order (every rank of the run calls here)
+        from dmosopt_tpu_torch.parallel.mesh import gather_rows
+
+        return gather_rows(self._call, x, self.mesh, self.batch_axis)
 
     def _stack_problems(self, rounds):
         """{problem_id: (round positions, stacked X)} over ``rounds``; a

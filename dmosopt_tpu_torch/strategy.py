@@ -34,7 +34,8 @@ path) and its kwargs pass through to every epoch. The problem-batched
 tenant core (`tenants.py`) opens an epoch with `open_epoch` and puts
 its result in place with `install_epoch_result` (``:417-470``). The
 ask/tell service checkpoints ``optimizer_draws`` (the optimizer-cycle
-draws taken) and asks `has_completed`.
+draws taken) and asks `has_completed`. A ``mesh`` (`parallel.mesh`)
+goes to every epoch (``dmosopt_tpu/strategy.py:85-94``).
 With a ``telemetry`` the initial design is an ``xinit`` phase (tagged
 ``xinit_epoch``, the run's first epoch, so a resumed run's summary keeps
 it), a quarantined row counts in ``points_quarantined_total``, and each
@@ -108,10 +109,10 @@ class DistOptStrategy:
         surrogate_custom_training_kwargs: Optional[Dict] = None,
         persist_features: bool = False, file_path=None,
         local_random=None, logger=None, device=None,
-        telemetry=None, xinit_epoch: int = 0,
+        telemetry=None, xinit_epoch: int = 0, mesh=None,
     ):
         self.__dict__.update(
-            prob=prob,
+            prob=prob, mesh=mesh,
             local_random=local_random,
             logger=logger,
             device=device,
@@ -378,7 +379,7 @@ class DistOptStrategy:
             optimize_mean_variance=self.optimize_mean_variance,
             termination=self.termination,
             local_random=self.local_random, logger=self.logger,
-            device=self.device, telemetry=self.telemetry,
+            device=self.device, telemetry=self.telemetry, mesh=self.mesh,
         )
         try:
             x_gen, reduce_evals = next(self.opt_gen)

@@ -9,8 +9,9 @@ optimizer options — advance together:
 - the surrogate fits run as ONE Adam loop with a leading problems axis
   (`models.gp.fit_gp_problems`), each tenant's training set padded to
   the bucket's common `_bucket_size` with masked rows;
-- the inner EA runs ONE generation loop over stacked NSGA-II states
-  (`optimizers.nsga2`): per generation one batched surrogate predict
+- the inner EA runs ONE generation loop over stacked NSGA-II or
+  AGE-MOEA states (`optimizers.nsga2`, `optimizers.agemoea`): per
+  generation one batched surrogate predict
   and **one** launch of the fused offspring kernel for the whole
   bucket, whatever the number of tenants T;
 - tenants with fewer generations left ride along as inactive rows: a
@@ -31,10 +32,8 @@ hold tenant by tenant.
 Routing: buckets smaller than ``min_bucket`` (every single-problem run)
 and tenants whose configuration the batched core does not cover take
 the sequential `DistOptStrategy.initialize_epoch`, with the JAX
-package's reasons (`batch_eligibility`). ``_BATCHABLE_OPTIMIZERS`` is
-NSGA-II alone: an AGE-MOEA tenant takes the sequential path ("optimizer
-'age' not batched in the port yet"); its greedy survival over a
-tenants axis is the next port item.
+package's reasons (`batch_eligibility`); ``_BATCHABLE_OPTIMIZERS`` is
+the JAX package's, NSGA-II and AGE-MOEA.
 
 Telemetry (``telemetry=``, the driver's): a bucket's fit, generation
 loop and host tail run in ``gp_fit``, ``ea_scan`` and ``resample``
@@ -96,10 +95,8 @@ from dmosopt_tpu_torch.telemetry import span_scope
 from dmosopt_tpu_torch.telemetry.hooks import generation_loop
 from dmosopt_tpu_torch.utils.prng import as_torch_generator
 
-# optimizers whose state functions take stacked states in the port
-_BATCHABLE_OPTIMIZERS = ("nsga2",)
-# those the JAX package batches and the port does not yet
-_BATCHED_IN_JAX_ONLY = ("age",)
+# optimizers whose state functions take stacked states
+_BATCHABLE_OPTIMIZERS = ("nsga2", "age")
 
 # GPR_Matern kwargs the batched fit understands; any other routes the
 # tenant to the sequential path rather than being dropped
@@ -138,13 +135,10 @@ def batch_eligibility(strat) -> Optional[str]:
 
 def _static_eligibility(strat) -> Optional[str]:
     """The gates decidable from the tenant's configuration alone, with
-    the JAX package's reasons; an optimizer the JAX package batches and
-    the port does not yet says so."""
+    the JAX package's reasons (``dmosopt_tpu/tenants.py:119-160``)."""
     if len(strat.optimizer_name) != 1:
         return "cycled optimizers"
     name = strat.optimizer_name[0]
-    if isinstance(name, str) and name in _BATCHED_IN_JAX_ONLY:
-        return f"optimizer {name!r} not batched in the port yet"
     if not isinstance(name, str) or name not in _BATCHABLE_OPTIMIZERS:
         return f"optimizer {name!r} not batchable"
     if strat.surrogate_method_name != "gpr":

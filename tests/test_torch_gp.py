@@ -258,8 +258,10 @@ def test_gpr_matern_runs_on_cpu_and_needs_cuda_by_default(monkeypatch):
     assert sm.get_stats()["n_iter_max"] == 20
     with pytest.raises(ValueError, match="predictor"):
         TGP.GPR_Matern(X, Y, 3, 2, xlb, xub, predictor="exact", device="cpu")
-    with pytest.raises(NotImplementedError, match="mesh"):
-        TGP.GPR_Matern(X, Y, 3, 2, xlb, xub, mesh=object(), device="cpu")
+    # meshes are ported (tests/test_torch_gp_sharded.py); a malformed
+    # surrogate_mesh spec is refused before any fit
+    with pytest.raises(TypeError, match="surrogate_mesh"):
+        TGP.GPR_Matern(X, Y, 3, 2, xlb, xub, surrogate_mesh="yes", device="cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         TGP.GPR_Matern(X, Y, 3, 2, xlb, xub, n_starts=1, n_iter=5)

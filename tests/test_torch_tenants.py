@@ -27,7 +27,7 @@ against the port's own sequential path.
   EA's final population to 1e-5 with ranks exactly equal, the resample
   rows equal.
 - Eligibility reasons against ``dmosopt_tpu.tenants.batch_eligibility``
-  (AGE-MOEA excepted by design), and a bucket whose offspring step
+  (AGE-MOEA included), and a bucket whose offspring step
   raises raising out of `run()` with no sequential re-run.
 
 Every JAX reference is one ``jax.jit`` program, compiled once in a
@@ -375,10 +375,10 @@ def test_eligibility_reasons_match_jax():
     for over in CONFIGS:
         strat = _namespace(**over)
         assert tenants.batch_eligibility(strat) == JT.batch_eligibility(strat), over
-    # AGE-MOEA buckets are the JAX package's alone, for now
+    # AGE-MOEA tenants join buckets in both packages
     age = _namespace(optimizer_name=("age",))
     assert JT.batch_eligibility(age) is None
-    assert tenants.batch_eligibility(age) == "optimizer 'age' not batched in the port yet"
+    assert tenants.batch_eligibility(age) is None
     assert tenants.bucket_signature(_namespace(prob=SimpleNamespace(dim=4, n_objectives=2),
                                                population_size=16), "nsga2", {}) \
         == JT.bucket_signature(_namespace(prob=SimpleNamespace(dim=4, n_objectives=2),
