@@ -30,7 +30,9 @@ It imports nothing of JAX nor of the JAX package. Phases, in order:
    pairs of 7 genes, phase 15), with rates and per-gene indices that
    differ between tenants, and at phase 16's AGE-MOEA buckets (Config
    2's 3 tenants of 50 pairs of 30 genes, 16 DTLZ2 tenants of 50 pairs
-   of 14 genes, population 100, pool 50).
+   of 14 genes, population 100, pool 50), and the fused kernel at phase
+   18's runner steps (32 pairs of 12 and of 24 genes from a population
+   of 64, pool 32).
    For each it prints the device
    time per launch, the plain version's, the host time per call of
    both, the bytes the function must move, GB/s, and the bound;
@@ -307,6 +309,26 @@ It imports nothing of JAX nor of the JAX package. Phases, in order:
    16 384 rows x 3 objectives bitwise equal to the single-device rank,
    and the sharded fit at 2048 rows within the same tolerances of
    `fit_gp_batch`.
+18. the benchmark runner, the `dmosopt` shim and the CLI. (a)
+   `benchmarks.runner.BenchmarkRunner` on the card at its defaults:
+   ``run_tier(1)`` (DTLZ2, DTLZ1, DTLZ7 at 3 objectives and MaF2 at 5;
+   AGE-MOEA, pop 64, 50 generations, 4 epochs, `gpr` with 4 starts and
+   100 steps), then tier 3's MaF2 at 15 objectives, each with the
+   counters reset just before it and read just after: the fused kernel
+   once a generation the epochs report and the standalone ones never,
+   each exact hypervolume trajectory monotone, and MaF2 at 15 objectives
+   estimated by FPRAS on the card within three times the sum of the two
+   half-widths of the port's CPU estimate of the same archive; each
+   problem's wall, final hypervolume, method, half-width and trajectory
+   printed. (b) The quick start's dict through
+   `dmosopt_tpu_torch.dmosopt.run`, cut to SHIM_EPOCHS epochs, with phase
+   4's checks. (c) An `OptimizationService` on the card with a status
+   file and no checkpoint steps two ZDT1 tenants twice (one bucket, one
+   launch a generation), and ``python -m dmosopt_tpu_torch.cli status``
+   renders the file in a subprocess, as JSON (both tenants at epoch 2)
+   and as the table. The fleet, the fleet rollup and the CLI's store
+   commands need h5py, which the machine lacks; the phase says so on a
+   line of its own.
 
 ``python3 chip_smoke.py --phases 2,9,10`` runs the named phases only
 (phase 1 always), without the kernels and result lines.
@@ -369,6 +391,15 @@ OFFSPRING_SHAPES = {
     "many_objective": (50, 14, 100, 50),
     "constrained": (50, 2, 100, 50),
     "sa": (50, 10, 100, 50),
+    # phase 18's runner: AGE-MOEA at pop 64 at each problem's width
+    # (moo_benchmarks.generate_problem_space): tier 1's DTLZ2 (12
+    # variables), DTLZ1 (7), DTLZ7 (22) and MaF2 at 5 objectives (14), and
+    # tier 3's MaF2 at 15 objectives (24)
+    "runner": (32, 12, 64, 32),
+    "runner_dtlz1": (32, 7, 64, 32),
+    "runner_dtlz7": (32, 22, 64, 32),
+    "runner_maf2_m5": (32, 14, 64, 32),
+    "runner_m15": (32, 24, 64, 32),
     "large": (65536, 256, 131072, 65536),
 }
 # the bucket launch of the problem-batched core: (tenants, (npairs, n,
@@ -750,13 +781,10 @@ def quick_start_params(opt_id, **over):
 def quick_start(torch, V):
     """Phase 4: the README quick start through run(); returns the
     kernel launch counts of this run."""
-    import numpy as np
-
     import dmosopt_tpu_torch
-    from dmosopt_tpu_torch.benchmarks.zdt import distance_to_front, zdt1_pareto
     from dmosopt_tpu_torch.driver import dopt_dict
 
-    dim, pop, gens, n_initial, n_epochs = QUICK_START
+    n_epochs = QUICK_START[4]
     params = quick_start_params("zdt1_quick_start")
     V.reset_kernel_launches()
     t0 = time.perf_counter()
@@ -774,9 +802,23 @@ def quick_start(torch, V):
         )
     print(f"run(): {wall:.3f} s for {n_epochs} epochs")
 
+    print(f"quick start kernel launches: {launches}")
+    _check_quick_start(dopt, best, launches, n_epochs, "quick start")
+    return launches
+
+
+def _check_quick_start(dopt, best, launches, n_epochs, label):
+    """Phase 4's checks of a quick start run of ``n_epochs`` epochs: the
+    fused kernel once a generation and the standalone ones never, the
+    evaluation count, the archive, and a non-dominated returned set
+    closer to the front than the initial design."""
+    import numpy as np
+
+    from dmosopt_tpu_torch.benchmarks.zdt import distance_to_front, zdt1_pareto
+
+    dim, pop, gens, n_initial, _ = QUICK_START
     n_gen = sum(s["n_generations"] for s in dopt.epoch_stats)
     assert n_gen == n_epochs * gens, n_gen
-    print(f"quick start kernel launches: {launches}")
     assert launches == {"offspring": n_gen, "sbx": 0, "mutation": 0}, launches
 
     x_all, y_all = dopt.optimizer_dict[0].get_evals()
@@ -785,7 +827,7 @@ def quick_start(torch, V):
     # the JAX driver's epoch accounting: every epoch but the last enqueues
     # its resample batch (driver.py:1428-1490)
     assert dopt.eval_count == n0 + (n_epochs - 1) * n_resample, dopt.eval_count
-    _check_archive(x_all, y_all, dopt.eval_count, "quick start")
+    _check_archive(x_all, y_all, dopt.eval_count, label)
 
     y = np.column_stack([v for _, v in best[1]])
     assert y.shape[0] > 0 and np.all(np.isfinite(y))
@@ -796,11 +838,10 @@ def quick_start(torch, V):
     d_best = float(np.median(distance_to_front(y, front)))
     d_init = float(np.median(distance_to_front(y_all[:n0], front)))
     print(
-        f"quick start: archive {x_all.shape[0]} rows, {y.shape[0]} returned; "
+        f"{label}: archive {x_all.shape[0]} rows, {y.shape[0]} returned; "
         f"median distance to the front {d_best:.4f} (initial design {d_init:.4f})"
     )
     assert d_best < d_init, (d_best, d_init)
-    return launches
 
 
 FILE_DIM = 10
@@ -3384,6 +3425,192 @@ def mesh_phase(torch, V, smi):
     return {"mesh_quick_start": launches}
 
 
+# phase 18: the runner, the shim and the CLI. (a) runs the runner's tier 1
+# at its defaults and tier 3's MaF2 at 15 objectives, whose hypervolume
+# the runner estimates by FPRAS on the card; (b) the quick start through
+# the `dmosopt` shim, cut to SHIM_EPOCHS epochs; (c) the CLI's `status`
+# in a subprocess on a service's status file
+RUNNER_FPRAS = ("maf2", 15)
+SHIM_EPOCHS = 2
+STATUS_TENANTS, STATUS_STEPS = 2, 2
+
+
+def runner_tiers(torch, V, smi):
+    """Phase 18 (a): `BenchmarkRunner(device=None).run_tier(1)` at its
+    defaults (DTLZ2, DTLZ1, DTLZ7 at 3 objectives, MaF2 at 5; AGE-MOEA,
+    pop 64, 50 generations, 4 epochs, `gpr` with 4 starts and 100
+    steps), then MaF2 at 15 objectives, each with the counts reset just
+    before it and read just after: the fused kernel once a generation
+    the epochs report and the standalone ones never, every exact
+    trajectory monotone, and MaF2 at 15 objectives estimated by FPRAS on
+    the card within three times the sum of the two half-widths of the
+    port's CPU estimate of the same archive."""
+    import tempfile
+
+    from dmosopt_tpu_torch.benchmarks import runner as R
+    from dmosopt_tpu_torch.driver import dopt_dict
+
+    engines = []
+
+    class RecordingHyperVolume(R.AdaptiveHyperVolume):
+        """The runner's engine, kept to read its reference point."""
+
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            engines.append(self)
+
+    plain = R.AdaptiveHyperVolume
+    R.AdaptiveHyperVolume = RecordingHyperVolume
+    out = {}
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            runner = R.BenchmarkRunner(output_dir=tmp)  # device None: the card
+            problems = list(runner.TIERS[1])
+            torch.cuda.synchronize()
+            V.reset_kernel_launches()
+            t0 = time.perf_counter()
+            results = runner.run_tier(1)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            out["tier1"] = dict(V.KERNEL_LAUNCHES)
+            V.reset_kernel_launches()
+            t1 = time.perf_counter()
+            results.append(runner.run_single_benchmark(*RUNNER_FPRAS))
+            torch.cuda.synchronize()
+            wall_fpras = time.perf_counter() - t1
+            out["maf2_m15"] = dict(V.KERNEL_LAUNCHES)
+            runner.save_summary()
+            assert len(os.listdir(tmp)) == len(problems) + 2  # results + summary
+    finally:
+        R.AdaptiveHyperVolume = plain
+    problems.append(RUNNER_FPRAS)
+
+    gens = {}
+    for (name, n_obj), res in zip(problems, results):
+        dopt = dopt_dict[f"{name}_m{n_obj}"]
+        gens[name, n_obj] = sum(s["n_generations"] for s in dopt.epoch_stats)
+        assert len(res.hv_trajectory) == res.final_epoch == 4, res
+        assert res.termination_reason == "epoch_budget", res
+        assert all(v > 0 for v in res.hv_trajectory), res.hv_trajectory
+        if res.hv_method == "exact":
+            traj = res.hv_trajectory
+            assert all(b >= a for a, b in zip(traj, traj[1:])), (name, traj)
+        print(f"[{smi}] runner {name} m{n_obj} (n_var {res.n_variables}): "
+              f"{res.computation_time_seconds:.3f} s, final_hv {res.final_hv!r}, "
+              f"hv_method {res.hv_method}, hv_ci {res.hv_ci!r}, {gens[name, n_obj]} "
+              f"generations, archive {res.n_archive}; trajectory {res.hv_trajectory}")
+    n_tier1 = sum(gens[p] for p in problems[:-1])
+    assert out["tier1"] == {"offspring": n_tier1, "sbx": 0, "mutation": 0}, out
+    assert out["maf2_m15"] == {"offspring": gens[RUNNER_FPRAS], "sbx": 0,
+                               "mutation": 0}, out
+    assert [r.hv_method for r in results] == ["exact"] * 4 + ["fpras"], results
+
+    # the 15-objective archive's hypervolume, estimated again on the CPU
+    res = results[-1]
+    y = dopt_dict["maf2_m15"].optimizer_dict[0].y
+    ref = engines[-1].ref_point
+    cpu = plain(ref, epsilon=0.05, device="cpu")
+    t2 = time.perf_counter()
+    est, ci = map(float, cpu.compute_hypervolume_with_confidence(y))
+    cpu_s = time.perf_counter() - t2
+    assert cpu.last_method == "fpras" and res.hv_ci > 0 and ci > 0
+    gap = abs(res.final_hv - est)
+    print(f"[{smi}] runner maf2 m15: the card's FPRAS {res.final_hv!r} (ci {res.hv_ci!r}, "
+          f"{engines[-1].last_n_samples} samples) against the CPU's {est!r} (ci {ci!r}, "
+          f"{cpu.last_n_samples} samples, {cpu_s:.3f} s) on the archive's "
+          f"{y.shape[0]} rows: gap {gap!r}, bar {3.0 * (res.hv_ci + ci)!r}")
+    assert gap <= 3.0 * (res.hv_ci + ci), (res.final_hv, est, res.hv_ci, ci)
+    print(f"[{smi}] runner tier 1 (4 problems, AGE-MOEA, pop 64, 50 generations, 4 "
+          f"epochs): {wall:.3f} s, offspring launches {out['tier1']['offspring']} for "
+          f"{n_tier1} generations; maf2 m15 {wall_fpras:.3f} s, "
+          f"{out['maf2_m15']['offspring']} launches for {gens[RUNNER_FPRAS]} generations")
+    return out
+
+
+def shim_quick_start(torch, V, smi):
+    """Phase 18 (b): the quick start's dict through the `dmosopt` shim,
+    cut to SHIM_EPOCHS epochs, with phase 4's checks."""
+    from dmosopt_tpu_torch import dmosopt, driver
+
+    assert dmosopt.dopt_dict is driver.dopt_dict and dmosopt.run is driver.run
+    params = quick_start_params("zdt1_shim", n_epochs=SHIM_EPOCHS)
+    torch.cuda.synchronize()
+    V.reset_kernel_launches()
+    t0 = time.perf_counter()
+    best = dmosopt.run(params, verbose=False)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(V.KERNEL_LAUNCHES)
+    _check_quick_start(dmosopt.dopt_dict["zdt1_shim"], best, launches, SHIM_EPOCHS,
+                       "shim quick start")
+    print(f"[{smi}] dmosopt shim quick start ({SHIM_EPOCHS} epochs): {wall:.3f} s, "
+          f"offspring launches {launches['offspring']}")
+    return launches
+
+
+def cli_status(torch, V, smi):
+    """Phase 18 (c): a service on the card with a status file and no
+    checkpoint steps STATUS_TENANTS ZDT1 tenants STATUS_STEPS times; the
+    CLI's `status` renders the file in a subprocess, which loads no
+    click (the machine has none)."""
+    import tempfile
+
+    from dmosopt_tpu_torch.benchmarks.zdt import zdt1
+    from dmosopt_tpu_torch.service import OptimizationService
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "status.json")
+        svc = OptimizationService(status_path=path, device="cuda")
+        for i in range(STATUS_TENANTS):
+            svc.submit(zdt1, {f"x{j}": [0.0, 1.0] for j in range(4)}, ["f1", "f2"],
+                       opt_id=f"status_{i}", torch_objective=True, n_epochs=4,
+                       population_size=16, num_generations=8, n_initial=3,
+                       surrogate_method_kwargs={"n_starts": 2, "n_iter": 40, "seed": 0},
+                       random_seed=i)
+        torch.cuda.synchronize()
+        V.reset_kernel_launches()
+        for _ in range(STATUS_STEPS):
+            svc.step()
+        torch.cuda.synchronize()
+        launches = dict(V.KERNEL_LAUNCHES)
+        env = dict(os.environ, PYTHONPATH=os.path.dirname(os.path.abspath(__file__)))
+        runs = [subprocess.run([sys.executable, "-m", "dmosopt_tpu_torch.cli", "status",
+                                "-p", path, *extra], capture_output=True, text=True,
+                               timeout=120, env=env)
+                for extra in (["--as-json"], [])]
+        svc.close()
+    for r in runs:
+        assert r.returncode == 0, r.stdout + r.stderr
+    snap = json.loads(runs[0].stdout)
+    epochs = {t["opt_id"]: t["epoch"] for t in snap["tenants"]}
+    assert epochs == {f"status_{i}": STATUS_STEPS for i in range(STATUS_TENANTS)}, epochs
+    assert snap["steps"] == STATUS_STEPS and snap["checkpoint_path"] is None
+    for i in range(STATUS_TENANTS):
+        assert f"status_{i}" in runs[1].stdout
+    # one bucket of both tenants: one launch a generation for the bucket
+    assert launches == {"offspring": STATUS_STEPS * 8, "sbx": 0, "mutation": 0}, launches
+    print(runs[1].stdout.rstrip())
+    print(f"[{smi}] cli status (python -m dmosopt_tpu_torch.cli, no click): exit 0, "
+          f"tenants at epochs {epochs}, offspring launches {launches['offspring']}")
+    return launches
+
+
+def runner_phase(torch, V, smi):
+    """Phase 18: the runner, the shim and the CLI. Returns each run's
+    launches."""
+    import importlib.util
+
+    out = runner_tiers(torch, V, smi)
+    out["shim_quick_start"] = shim_quick_start(torch, V, smi)
+    out["cli_status_service"] = cli_status(torch, V, smi)
+    print(f"[{smi}] not run on this machine: the fleet (its workers checkpoint to "
+          f"HDF5), the fleet rollup and the CLI's analyze, train, onestep, telemetry "
+          f"and fleet (they read HDF5 stores); h5py importable: "
+          f"{importlib.util.find_spec('h5py') is not None}. The CPU tests hold them "
+          f"(tests/test_torch_fleet.py, tests/test_torch_cli.py).")
+    return out
+
+
 def _requested_phases(argv):
     """The phases of ``--phases 2,9,10``, or None for the whole script."""
     if not argv:
@@ -3419,7 +3646,8 @@ def main() -> int:
                 6: many_objective, 7: lorenz_run, 8: config5_loop,
                 9: constrained_run, 10: sa_run, 11: reusing_surrogate,
                 12: sparse_surrogates, 13: tenant_core, 14: telemetry_phase,
-                15: service_phase, 16: age_buckets, 17: mesh_phase}
+                15: service_phase, 16: age_buckets, 17: mesh_phase,
+                18: runner_phase}
         for p in sorted(phases):
             t0 = time.perf_counter()
             fn = runs[p]
@@ -3458,11 +3686,13 @@ def main() -> int:
     t10 = time.perf_counter()
     launches_mesh = mesh_phase(torch, V, smi)
     t11 = time.perf_counter()
+    launches_runner = runner_phase(torch, V, smi)
+    t12 = time.perf_counter()
     print(f"[{smi}] phase 7 {t1 - t0:.1f} s, phase 8 {t2 - t1:.1f} s, phase 9 "
           f"{t3 - t2:.1f} s, phase 10 {t4 - t3:.1f} s, phase 11 {t5 - t4:.1f} s, "
           f"phase 12 {t6 - t5:.1f} s, phase 13 {t7 - t6:.1f} s, phase 14 {t8 - t7:.1f} s, "
           f"phase 15 {t9 - t8:.1f} s, phase 16 {t10 - t9:.1f} s, phase 17 "
-          f"{t11 - t10:.1f} s")
+          f"{t11 - t10:.1f} s, phase 18 {t12 - t11:.1f} s")
     assert "jax" not in sys.modules and "dmosopt_tpu" not in sys.modules
 
     kernels = []
@@ -3488,6 +3718,7 @@ def main() -> int:
             "launches_service_runs": {m: n[name] for m, n in launches_service.items()},
             "launches_age_bucket_runs": {m: n[name] for m, n in launches_age.items()},
             "launches_mesh_runs": {m: n[name] for m, n in launches_mesh.items()},
+            "launches_runner_runs": {m: n[name] for m, n in launches_runner.items()},
             "max_abs_err": max(r["max_abs_err"] for r in rep["rows"].values()),
             "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
             "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
@@ -3495,7 +3726,9 @@ def main() -> int:
             "host_ms": main_row["host_ms"], "plain_host_ms": main_row["plain_host_ms"],
             "large": rep["rows"]["large"],
             **{k: rep["rows"][k] for k in ("main", "direct", "file", "many_objective",
-                                           "constrained", "sa", "children",
+                                           "constrained", "sa", "children", "runner",
+                                           "runner_dtlz1", "runner_dtlz7",
+                                           "runner_maf2_m5", "runner_m15",
                                            *BUCKET_SHAPES)
                if k in rep["rows"] and k != top},
             **({"also_replaces": rep["also_replaces"]} if "also_replaces" in rep else {}),

@@ -13,8 +13,12 @@ metrics, events, spans, health rules, and a device ledger read from
 front over the same machinery: callers submit problems at any time and
 each `step()` advances every tenant one epoch, bucket-mates sharing one
 fit and one EA, lockstep or as a task graph, with per-tenant fault
-policies, atomic checkpoints and an optional OpenMetrics exporter. It
-imports neither jax nor dmosopt_tpu.
+policies, atomic checkpoints and an optional OpenMetrics exporter;
+`fleet` runs such services as worker processes and migrates a dead
+worker's tenants. `benchmarks.runner` runs the DTLZ/WFG/MaF tiers,
+`dmosopt` is the drop-in entry module, and ``python -m
+dmosopt_tpu_torch.cli`` the command line. It imports neither jax nor
+dmosopt_tpu.
 """
 
 __version__ = "0.1.0"

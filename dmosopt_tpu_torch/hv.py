@@ -303,10 +303,12 @@ def hypervolume_fpras(
     cdf = np.cumsum(vols / vols.sum())
 
     pts = torch.as_tensor(points, dtype=torch.float32, device=dev)
-    n_pad = -n % _COVER_CHUNK
+    # a front smaller than a chunk is one chunk of its own size
+    chunk = min(n, _COVER_CHUNK)
+    n_pad = -n % chunk
     pts_chunks = torch.cat(
         [pts, torch.full((n_pad, d), torch.inf, device=dev)]
-    ).reshape(-1, _COVER_CHUNK, d)
+    ).reshape(-1, chunk, d)
     ref32 = torch.as_tensor(ref, dtype=torch.float32, device=dev)
     cdf32 = torch.as_tensor(cdf, dtype=torch.float32, device=dev)
     sv = sampling.sobol_direction_numbers(d + 1) if qmc else None

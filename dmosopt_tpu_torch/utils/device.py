@@ -12,13 +12,12 @@ import torch
 
 
 def resolve_device(device=None) -> torch.device:
-    """``None`` -> ``cuda`` (raising when no CUDA device is present);
-    anything else -> ``torch.device(device)``."""
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "dmosopt_tpu_torch runs on a CUDA device by default and "
-                "none is available; pass device='cpu' to run on the CPU"
-            )
-        return torch.device("cuda")
-    return torch.device(device)
+    """``None`` -> ``cuda``; anything else -> ``torch.device(device)``.
+    A CUDA device, named or by default, raises when none is present."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "dmosopt_tpu_torch runs on a CUDA device by default and "
+            "none is available; pass device='cpu' to run on the CPU"
+        )
+    return dev

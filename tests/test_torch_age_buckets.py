@@ -204,7 +204,7 @@ def test_age_tenants_share_a_service_bucket():
         hs = [svc.submit(zdt1, {f"x{i}": [0.0, 1.0] for i in range(4)}, ["f1", "f2"],
                          opt_id=f"a{k}", n_epochs=2, population_size=16,
                          num_generations=4, n_initial=3, optimizer_name="age",
-                         surrogate_method_kwargs={"n_starts": 2, "n_iter": 20, "seed": 0},
+                         surrogate_method_kwargs={"n_starts": 2, "n_iter": 10, "seed": 0},
                          random_seed=30 + k) for k in range(2)]
         svc.run()
         routes = svc.telemetry.registry.snapshot()

@@ -104,6 +104,23 @@ def test_fpras_blocks_with_the_jax_draws_match_jax():
     got_q = port_hv._fpras_block_qmc(*targs, sv, torch.as_tensor(bits), block)
     assert float(got_q) == pytest.approx(float(want_q), rel=1e-6)
 
+    # hypervolume_fpras gives a front below a chunk one chunk of its own
+    # size: the same cover counts as the padded chunk, and JAX's on the
+    # same draws
+    own = pts.reshape(1, len(pts), d)
+    targs_own = (targs[0], _f32(own), targs[2], targs[3])
+    got_own = port_hv._fpras_block(*targs_own, _f32(u_box), _f32(u_pos))
+    for a, b in zip(got_own, got):
+        assert torch.equal(torch.as_tensor(a), torch.as_tensor(b))
+    want_own = jax_hv._fpras_block(key, jargs[0], jnp.asarray(own), *jargs[2:], block=block)
+    np.testing.assert_allclose([float(g) for g in got_own],
+                               [float(w) for w in want_own], rtol=1e-6)
+    got_q_own = port_hv._fpras_block_qmc(*targs_own, sv, torch.as_tensor(bits), block)
+    assert torch.equal(torch.as_tensor(got_q_own), torch.as_tensor(got_q))
+    want_q_own = jax_hv._fpras_block_qmc(key, jargs[0], jnp.asarray(own), *jargs[2:],
+                                         jnp.asarray(sv), block=block)
+    assert float(got_q_own) == pytest.approx(float(want_q_own), rel=1e-6)
+
 
 def test_fpras_and_the_facade_hold_the_exact_value():
     P = _front(40, 4, 9)

@@ -34,7 +34,7 @@ from dmosopt_tpu_torch.storage import (
     save_front_to_h5,
 )
 
-SMK = {"n_starts": 2, "n_iter": 20, "seed": 0}
+SMK = {"n_starts": 2, "n_iter": 10, "seed": 0}
 
 
 def _space(dim):
