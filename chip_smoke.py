@@ -54,8 +54,14 @@ It imports nothing of JAX nor of the JAX package. Phases, in order:
    with the counters reset just before it and read just after: it must
    launch the fused kernel once per generation and the standalone ones
    never, archive every evaluated row once, and leave no thread behind.
-   The chip machine has no h5py, so the run has no store and this phase
-   no save-and-resume step (the CPU tests hold that path). Then the same
+   It saves to a store in a temporary directory (the port's own HDF5
+   module: the chip machine has no h5py), and the same parameters then
+   resume from it for 2 more epochs (labels 2 and 3), the counters reset
+   just before and read just after: the resumed run starts at the stored
+   epoch + 1, launches the fused kernel once per generation and the
+   standalone ones never, keeps each row once, and the store read back
+   by the port's reader holds the float64 archive bit for bit. Each run
+   prints the store's size and its ``h5_write`` spans by epoch. Then the same
    configuration with an objective that sleeps 20 ms per call, in the
    ``serial`` and ``speculative`` pipelines in turns (serial,
    speculative, speculative, serial), printing each epoch's wall time,
@@ -265,8 +271,12 @@ It imports nothing of JAX nor of the JAX package. Phases, in order:
    ``/healthz`` answers, and ``close()`` joins the exporter's thread.
    (e) 16 tenants at the quick start's width (ZDT1 dim 30, pop 200, 100
    generations, 2 epochs) in one bucket under the scheduler: one fused
-   launch a generation. The chip machine has no h5py, so no phase saves
-   a front or a checkpoint; the CPU tests hold those paths.
+   launch a generation. (f) Config 12 at T = 16 under the scheduler with
+   a ``checkpoint_path`` and each tenant's fronts saved to its own
+   store: after step 1 the service closes, a new one ``resume``s the
+   checkpoint and runs step 2 (32 fused launches a step); the streamed
+   and stored fronts agree with (a)'s uninterrupted run within
+   FRONT_RTOL (printed: bitwise or not).
 
 16. AGE-MOEA buckets at full width, each run through run() with the
    counters reset just before it and read just after. (a) ``bench.py``
@@ -321,14 +331,23 @@ It imports nothing of JAX nor of the JAX package. Phases, in order:
    half-widths of the port's CPU estimate of the same archive; each
    problem's wall, final hypervolume, method, half-width and trajectory
    printed. (b) The quick start's dict through
-   `dmosopt_tpu_torch.dmosopt.run`, cut to SHIM_EPOCHS epochs, with phase
-   4's checks. (c) An `OptimizationService` on the card with a status
-   file and no checkpoint steps two ZDT1 tenants twice (one bucket, one
-   launch a generation), and ``python -m dmosopt_tpu_torch.cli status``
-   renders the file in a subprocess, as JSON (both tenants at epoch 2)
-   and as the table. The fleet, the fleet rollup and the CLI's store
-   commands need h5py, which the machine lacks; the phase says so on a
-   line of its own.
+   `dmosopt_tpu_torch.dmosopt.run`, cut to SHIM_EPOCHS epochs and saved
+   to a store, with phase 4's checks. (c) An `OptimizationService` on
+   the card with a status file and no checkpoint steps two ZDT1 tenants
+   twice (one bucket, one launch a generation), and ``python -m
+   dmosopt_tpu_torch.cli status`` renders the file in a subprocess, as
+   JSON (both tenants at epoch 2) and as the table. (d) The fleet on the
+   card: 2 workers with 4 tenants (tests/test_torch_fleet.py's, with
+   ``device="cuda"`` and every tenant unbatched: on the card a bucket's
+   size changes its rounding); a fault plan SIGKILLs w0 in the middle of
+   an epoch, w1 claims its checkpoint and adopts its tenants; every
+   tenant completes with fronts within FRONT_RTOL of an in-process
+   uninterrupted service's on the card (64 fused launches), each
+   worker's own counts show fused launches and no standalone ones, and
+   the time from the kill to the migrated tenant's next stored front is
+   printed. (e) ``python -m dmosopt_tpu_torch.cli`` analyze and
+   telemetry on (b)'s store and ``fleet --dir`` on (d)'s directory, in
+   three subprocesses at once: each exits 0.
 
 ``python3 chip_smoke.py --phases 2,9,10`` runs the named phases only
 (phase 1 always), without the kernels and result lines.
@@ -914,18 +933,64 @@ def _check_file_run(dopt, n_epochs):
     assert not dopt._inflight
 
 
+def _h5_write_report(dopt, fpath, opt_id):
+    """The store's size and each stored epoch's ``h5_write`` spans (count
+    and seconds), as the run's own telemetry persisted them."""
+    from dmosopt_tpu_torch import storage
+
+    spans = storage.load_spans_from_h5(fpath, opt_id)
+    per_epoch = {
+        e: [s["duration_s"] for s in v if s["name"] == "h5_write"]
+        for e, v in spans.items()
+    }
+    st = dopt.pipeline_stats
+    return (
+        f"store {os.path.getsize(fpath)} bytes; h5_write spans by stored epoch "
+        + ", ".join(f"{e}: {len(d)} writes {sum(d):.4f} s" for e, d in per_epoch.items())
+        + f"; this run's writes {st['h5_writes']} in {st['h5_write_s']:.4f} s"
+    )
+
+
+def _check_store_equals_archive(dopt, fpath, opt_id):
+    """The store, read back by the port's own reader, holds the float64
+    archive bit for bit: the same distinct (x, y) rows. The log may hold
+    a row twice where the resample dedupe let a re-evaluation through
+    (`_check_archive`); the archive keeps it once."""
+    import numpy as np
+
+    from dmosopt_tpu_torch import storage
+
+    rows = storage.h5_load_raw(fpath, opt_id)["evals"][0]
+    logged = np.hstack([np.vstack([e.parameters for e in rows]),
+                        np.vstack([e.objectives for e in rows])])
+    x_all, y_all = dopt.optimizer_dict[0].get_evals()
+    assert x_all.dtype == y_all.dtype == np.float64, (x_all.dtype, y_all.dtype)
+    stored = np.unique(logged, axis=0)
+    archive = np.unique(np.hstack([x_all, y_all]), axis=0)
+    assert stored.shape == archive.shape, (stored.shape, archive.shape)
+    assert np.array_equal(stored.view(np.uint64), archive.view(np.uint64))
+    return logged.shape[0]
+
+
 def file_backed(torch, V, smi):
-    """Phase 5: the example's host-objective run on a thread pool, and
-    the serial and speculative pipelines with a slow objective."""
+    """Phase 5: the example's host-objective run on a thread pool, saved
+    to a store and resumed from it, and the serial and speculative
+    pipelines with a slow objective."""
+    import shutil
+    import tempfile
     import threading
 
     import dmosopt_tpu_torch
+    from dmosopt_tpu_torch import storage
     from dmosopt_tpu_torch.driver import dopt_dict
 
+    store_dir = tempfile.mkdtemp(prefix="chip_smoke_store_")
+    fpath = os.path.join(store_dir, "zdt1_file.h5")
+    saved = dict(save=True, file_path=fpath)
     threads_before = threading.active_count()
     V.reset_kernel_launches()
     t0 = time.perf_counter()
-    dmosopt_tpu_torch.run(_file_params("zdt1_file", _example_zdt1), verbose=False)
+    dmosopt_tpu_torch.run(_file_params("zdt1_file", _example_zdt1, **saved), verbose=False)
     wall = time.perf_counter() - t0
     launches = dict(V.KERNEL_LAUNCHES)
     dopt = dopt_dict["zdt1_file"]
@@ -938,12 +1003,40 @@ def file_backed(torch, V, smi):
     threads_after = threading.active_count()
     assert threads_after == threads_before, (threads_before, threads_after)
     st = dopt.pipeline_stats
+    n_logged = _check_store_equals_archive(dopt, fpath, "zdt1_file")
     print(
-        f"[{smi}] file-backed run (4 workers, overlap_io): run() {wall:.3f} s, "
+        f"[{smi}] file-backed run (4 workers, overlap_io, saved): run() {wall:.3f} s, "
         f"{dopt.eval_count} evaluations, drain wall {st['eval_wait_s']:.4f} s, "
         f"evaluation overlapped with other work {st['eval_overlap_s']:.4f} s; "
-        f"threads {threads_before} before, {threads_after} after"
+        f"threads {threads_before} before, {threads_after} after; "
+        f"{_h5_write_report(dopt, fpath, 'zdt1_file')}"
     )
+
+    # the same parameters again: the run resumes from the store, its
+    # epochs labelled after the stored ones
+    stored_max = storage.init_from_h5(fpath, None, "zdt1_file")[1]
+    V.reset_kernel_launches()
+    t0 = time.perf_counter()
+    dmosopt_tpu_torch.run(_file_params("zdt1_file", _example_zdt1, **saved), verbose=False)
+    wall = time.perf_counter() - t0
+    resumed = dict(V.KERNEL_LAUNCHES)
+    dopt = dopt_dict["zdt1_file"]
+    assert dopt.start_epoch == stored_max + 1 == 2, (dopt.start_epoch, stored_max)
+    assert [s["epoch"] for s in dopt.epoch_stats] == [2, 3], dopt.epoch_stats
+    n_gen = sum(s["n_generations"] for s in dopt.epoch_stats)
+    assert resumed == {"offspring": n_gen, "sbx": 0, "mutation": 0}, resumed
+    n_logged = _check_store_equals_archive(dopt, fpath, "zdt1_file")
+    x_all, y_all = dopt.optimizer_dict[0].get_evals()
+    _check_archive(x_all, y_all, n_logged, "resumed file-backed run")
+    assert threading.active_count() == threads_before
+    print(
+        f"[{smi}] resumed file-backed run (epochs 2-3 from stored epoch {stored_max}): "
+        f"run() {wall:.3f} s, offspring launches {resumed['offspring']} for {n_gen} "
+        f"generations, {dopt.eval_count} evaluations; the store ({n_logged} logged "
+        f"rows) equals the float64 archive ({x_all.shape[0]} rows) bit for bit; "
+        f"{_h5_write_report(dopt, fpath, 'zdt1_file')}"
+    )
+    shutil.rmtree(store_dir)
 
     for turn, mode in enumerate(("serial", "speculative", "speculative", "serial")):
         opt_id = f"zdt1_file_{mode}_{turn}"
@@ -971,7 +1064,7 @@ def file_backed(torch, V, smi):
             f"overlapped with other work {st['eval_overlap_s']:.3f} s"
         )
     assert threading.active_count() == threads_before
-    return launches
+    return {"saved": launches, "resumed": resumed}
 
 
 def many_objective(torch, V, smi):
@@ -3072,6 +3165,78 @@ def service_wide(torch, V, smi):
     return launches
 
 
+def service_checkpoint(torch, V, smi, ref):
+    """Phase 15 (f): Config 12 at T = 16 under the scheduler with a
+    checkpoint and each tenant's fronts saved to its own store. After
+    step 1 the service closes; a new one `resume`s the checkpoint and
+    runs step 2. Each step launches the fused kernel once a bucket a
+    generation; every tenant's streamed and stored fronts agree with the
+    uninterrupted run's (``ref``) within FRONT_RTOL."""
+    import tempfile
+
+    import numpy as np
+
+    from dmosopt_tpu_torch.benchmarks.zdt import zdt1
+    from dmosopt_tpu_torch.service import OptimizationService
+    from dmosopt_tpu_torch.storage import load_fronts_from_h5
+
+    T = 16
+    per_step = len(CONFIG12_DIMS) * CONFIG12["num_generations"]
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = os.path.join(tmp, "service.h5")
+        store = {f"tg_{T}_{i}": os.path.join(tmp, f"tg_{T}_{i}.h5") for i in range(T)}
+        svc = OptimizationService(min_bucket=2, scheduler=True, device="cuda",
+                                  checkpoint_path=ckpt)
+        handles = [_service_submit(svc, T, i, file_path=store[f"tg_{T}_{i}"])
+                   for i in range(T)]
+        torch.cuda.synchronize()
+        V.reset_kernel_launches()
+        t0 = time.perf_counter()
+        svc.step()
+        torch.cuda.synchronize()
+        step1 = time.perf_counter() - t0
+        first = dict(V.KERNEL_LAUNCHES)
+        before = {h.opt_id: h.updates() for h in handles}
+        svc.close()
+        ckpt_bytes = os.path.getsize(ckpt)
+
+        t0 = time.perf_counter()
+        svc2, resumed = OptimizationService.resume(
+            ckpt, {k: zdt1 for k in store}, scheduler=True, device="cuda")
+        restore = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        V.reset_kernel_launches()
+        t0 = time.perf_counter()
+        svc2.run()
+        torch.cuda.synchronize()
+        step2 = time.perf_counter() - t0
+        second = dict(V.KERNEL_LAUNCHES)
+        assert all(h.done and h.error is None for h in resumed.values())
+        after = {k: h.updates() for k, h in resumed.items()}
+        svc2.close()
+        stored = {k: load_fronts_from_h5(fp, k) for k, fp in store.items()}
+        store_bytes = sum(os.path.getsize(fp) for fp in store.values())
+    assert first == second == {"offspring": per_step, "sbx": 0, "mutation": 0}, (first, second)
+    joined = {k: before[k] + after[k] for k in store}
+    _check_fronts(joined, CONFIG12["n_epochs"], "checkpointed service")
+    bitwise, worst = True, 0.0
+    for e in range(CONFIG12["n_epochs"]):
+        b, w = _front_agreement({k: [v[e]] for k, v in joined.items()},
+                                {k: [v[e]] for k, v in ref.items()}, sorted(store))
+        bitwise, worst = bitwise and b, max(worst, w)
+        for k, fronts in stored.items():
+            # the stores keep fronts in float32 (`save_front_to_h5`)
+            for got, want in zip(fronts[e], (joined[k][e].x, joined[k][e].y)):
+                assert np.array_equal(got, want.astype(np.float32)), (k, e)
+    print(f"[{smi}] checkpointed service, T=16 under the scheduler: step 1 {step1:.3f} s, "
+          f"checkpoint {ckpt_bytes} bytes, resume {restore:.3f} s, step 2 {step2:.3f} s; "
+          f"offspring launches {first['offspring']} and {second['offspring']}; 16 front "
+          f"stores {store_bytes} bytes, equal to the streamed fronts; fronts against the "
+          f"uninterrupted run {'bitwise equal' if bitwise else 'equal'} (worst relative "
+          f"difference {worst:.3e})")
+    return {"step1": first, "resumed_step2": second}
+
+
 def service_phase(torch, V, smi):
     """Phase 15: the ask/tell service on the card. Returns each run's
     launches."""
@@ -3082,6 +3247,8 @@ def service_phase(torch, V, smi):
         launches.update(config12_device(torch, V, smi, profile_dir))
     launches["faults_T16"] = service_faults(torch, V, smi, ref16)
     launches["wide16"] = service_wide(torch, V, smi)
+    for step, counts in service_checkpoint(torch, V, smi, ref16).items():
+        launches[f"checkpointed_T16_{step}"] = counts
     return launches
 
 
@@ -3433,6 +3600,25 @@ def mesh_phase(torch, V, smi):
 RUNNER_FPRAS = ("maf2", 15)
 SHIM_EPOCHS = 2
 STATUS_TENANTS, STATUS_STEPS = 2, 2
+# (d) the fleet of tests/test_torch_fleet.py on the card: 2 workers, 4
+# tenants of host ZDT1 (dim 4, pop 16, 4 generations, 4 epochs); t0's
+# 19th evaluation (the 12-row design, then 4 a resample) SIGKILLs w0
+# in the middle of an epoch, after two checkpointed epoch boundaries
+FLEET_TENANTS = 4
+FLEET_SPACE = {f"x{i}": [0.0, 1.0] for i in range(4)}
+FLEET_SUBMIT = dict(torch_objective=False, n_epochs=4, population_size=16,
+                    num_generations=4, n_initial=3,
+                    surrogate_method_kwargs={"n_starts": 2, "n_iter": 20, "seed": 0})
+FLEET_OBJECTIVE = "dmosopt_tpu_torch.fleet.objectives:host_zdt1"
+FLEET_KILL = {"seed": 0, "rules": [{"kind": "kill", "target": "t0", "op": "eval",
+                                    "after": 18}]}
+FLEET_DEADLINE = 240.0
+# every tenant runs alone (no bucket of 2 or more): on the card a batched
+# fit rounds differently at another bucket size, and the fleet's buckets
+# differ from one in-process service's (2 tenants a worker, then 4 on the
+# survivor), so only unbatched tenants give fronts that must match
+# bitwise (PERF.md section 6, PR 14)
+FLEET_MIN_BUCKET = FLEET_TENANTS + 1
 
 
 def runner_tiers(torch, V, smi):
@@ -3527,13 +3713,15 @@ def runner_tiers(torch, V, smi):
     return out
 
 
-def shim_quick_start(torch, V, smi):
+def shim_quick_start(torch, V, smi, store):
     """Phase 18 (b): the quick start's dict through the `dmosopt` shim,
-    cut to SHIM_EPOCHS epochs, with phase 4's checks."""
+    cut to SHIM_EPOCHS epochs and saved to ``store``, with phase 4's
+    checks."""
     from dmosopt_tpu_torch import dmosopt, driver
 
     assert dmosopt.dopt_dict is driver.dopt_dict and dmosopt.run is driver.run
-    params = quick_start_params("zdt1_shim", n_epochs=SHIM_EPOCHS)
+    params = quick_start_params("zdt1_shim", n_epochs=SHIM_EPOCHS, save=True,
+                                file_path=store)
     torch.cuda.synchronize()
     V.reset_kernel_launches()
     t0 = time.perf_counter()
@@ -3543,8 +3731,9 @@ def shim_quick_start(torch, V, smi):
     launches = dict(V.KERNEL_LAUNCHES)
     _check_quick_start(dmosopt.dopt_dict["zdt1_shim"], best, launches, SHIM_EPOCHS,
                        "shim quick start")
-    print(f"[{smi}] dmosopt shim quick start ({SHIM_EPOCHS} epochs): {wall:.3f} s, "
-          f"offspring launches {launches['offspring']}")
+    print(f"[{smi}] dmosopt shim quick start ({SHIM_EPOCHS} epochs, saved): {wall:.3f} s, "
+          f"offspring launches {launches['offspring']}; "
+          f"{_h5_write_report(dmosopt.dopt_dict['zdt1_shim'], store, 'zdt1_shim')}")
     return launches
 
 
@@ -3595,19 +3784,202 @@ def cli_status(torch, V, smi):
     return launches
 
 
+def _stored_front_epochs(path, opt_id):
+    """The epochs of the fronts a tenant's store holds so far (none
+    before the store exists)."""
+    from dmosopt_tpu_torch.storage import load_fronts_from_h5
+
+    return sorted(load_fronts_from_h5(path, opt_id)) if os.path.exists(path) else []
+
+
+def _fleet_reference(torch, V, ref_dir):
+    """The uninterrupted run of the fleet's tenants: one in-process
+    service on the card, each tenant's fronts in its own store under
+    ``ref_dir``; the counts reset just before it and read just after."""
+    from dmosopt_tpu_torch.fleet.objectives import host_zdt1
+    from dmosopt_tpu_torch.service import OptimizationService
+
+    svc = OptimizationService(telemetry=False, device="cuda",
+                              min_bucket=FLEET_MIN_BUCKET)
+    for i in range(FLEET_TENANTS):
+        svc.submit(host_zdt1, dict(FLEET_SPACE), ["f1", "f2"], opt_id=f"t{i}",
+                   random_seed=40 + i, file_path=os.path.join(ref_dir, f"t{i}.h5"),
+                   **FLEET_SUBMIT)
+    torch.cuda.synchronize()
+    V.reset_kernel_launches()
+    t0 = time.perf_counter()
+    svc.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(V.KERNEL_LAUNCHES)
+    svc.close()
+    return wall, launches
+
+
+def fleet_on_card(torch, V, smi, root):
+    """Phase 18 (d): a 2-worker fleet on the card (`FleetSupervisor`,
+    ``device="cuda"``), 4 tenants of 4 epochs, as in
+    tests/test_torch_fleet.py but each tenant unbatched
+    (FLEET_MIN_BUCKET). A fault plan SIGKILLs w0 in the middle of an
+    epoch (at t0's 19th evaluation); w1 claims its checkpoint and adopts
+    its tenants. Every tenant completes, and its stored fronts agree
+    within FRONT_RTOL with an in-process uninterrupted service's on the
+    card (64 fused launches: one a generation a tenant). Prints the time from the kill to the first front of a
+    later epoch in t0's store (its next completed step), and each
+    worker's fused launches (their own counts, in their status files)."""
+    import tempfile
+    from types import SimpleNamespace
+
+    from dmosopt_tpu_torch.fleet import FleetSupervisor, LivenessPolicy
+    from dmosopt_tpu_torch.fleet.wire import STATUS_FILE, read_json, worker_dir
+    from dmosopt_tpu_torch.storage import load_fronts_from_h5
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    env = {"PYTHONPATH": repo, "OMP_NUM_THREADS": "1"}
+    results = os.path.join(root, "results")
+    t0_store = os.path.join(results, "t0.h5")
+    sup = FleetSupervisor(
+        root, n_workers=2, telemetry=True, device="cuda", min_bucket=FLEET_MIN_BUCKET,
+        liveness=LivenessPolicy(heartbeat_timeout=60.0, confirm_rounds=2,
+                                fence_grace=10.0, probe_timeout=2.0, probe_retries=1),
+        worker_env={"w0": dict(env, DMOSOPT_FAULT_PLAN=json.dumps(FLEET_KILL)),
+                    "w1": dict(env)},
+        python=sys.executable,
+    )
+    try:
+        t_start = time.perf_counter()
+        sup.start(timeout=FLEET_DEADLINE)
+        started = time.perf_counter() - t_start
+        for i in range(FLEET_TENANTS):
+            sup.submit({"opt_id": f"t{i}", "objective": FLEET_OBJECTIVE,
+                        "space": dict(FLEET_SPACE), "objective_names": ["f1", "f2"],
+                        "random_seed": 40 + i,
+                        "file_path": os.path.join(results, f"t{i}.h5"), **FLEET_SUBMIT},
+                       worker=f"w{i % 2}")
+        victim = sup.workers["w0"]
+        killed_at = recovered_at = None
+        deadline = time.monotonic() + FLEET_DEADLINE
+        while sup.pending_tenants():
+            assert time.monotonic() < deadline, ("fleet timed out", sup.pending_tenants())
+            round_at = time.perf_counter()
+            sup.monitor_once()
+            # w0 is gone once its process is reaped or a probe round
+            # declared it dead (a SIGKILLed process that held a CUDA
+            # context takes a while to exit); the round that saw it first
+            # dates the kill
+            if killed_at is None and (victim.proc.poll() is not None
+                                      or victim.state in ("dead", "fenced")):
+                killed_at = round_at
+                at_kill = _stored_front_epochs(t0_store, "t0")
+            elif killed_at is not None and recovered_at is None:
+                if _stored_front_epochs(t0_store, "t0")[-1:] > at_kill[-1:]:
+                    recovered_at = time.perf_counter()
+            time.sleep(0.02)
+        fleet_wall = time.perf_counter() - t_start
+        summary = sup.summary()
+        sup.stop(timeout=FLEET_DEADLINE)
+        sup.close()
+    finally:
+        for w in sup.workers.values():
+            if w.proc is not None and w.proc.poll() is None:
+                w.proc.kill()
+                w.proc.wait(timeout=60)
+    assert summary["tenants"] == {f"t{i}": "completed" for i in range(FLEET_TENANTS)}, summary
+    assert victim.proc.wait(timeout=60) == -9, victim.proc.returncode
+    assert summary["workers"]["w0"]["exit_code"] == -9, summary["workers"]
+    assert len(summary["migrations"]) == 1 and summary["lease_conflicts"] == 0, summary
+    migration = summary["migrations"][0]
+    assert (migration["from"], migration["to"]) == ("w0", "w1") and migration["checkpoint_claimed"]
+    assert killed_at is not None and recovered_at is not None, (killed_at, recovered_at)
+    worker_launches = {
+        w: read_json(os.path.join(worker_dir(root, w), STATUS_FILE))["kernel_launches"]
+        for w in ("w0", "w1")
+    }
+    for w, counts in worker_launches.items():
+        assert counts["offspring"] > 0 and counts["sbx"] == counts["mutation"] == 0, (w, counts)
+
+    with tempfile.TemporaryDirectory() as ref_dir:
+        ref_wall, launches = _fleet_reference(torch, V, ref_dir)
+        reference = {f"t{i}": load_fronts_from_h5(os.path.join(ref_dir, f"t{i}.h5"), f"t{i}")
+                     for i in range(FLEET_TENANTS)}
+    # one launch a generation for each tenant, alone
+    per_run = FLEET_TENANTS * FLEET_SUBMIT["n_epochs"] * FLEET_SUBMIT["num_generations"]
+    assert launches == {"offspring": per_run, "sbx": 0, "mutation": 0}, launches
+    stored = {k: load_fronts_from_h5(os.path.join(results, f"{k}.h5"), k) for k in reference}
+    epochs = list(range(FLEET_SUBMIT["n_epochs"]))
+    assert all(sorted(f) == epochs for f in (*stored.values(), *reference.values()))
+    bitwise, worst = True, 0.0
+    for e in epochs:
+        got, want = ({k: [SimpleNamespace(x=f[e][0], y=f[e][1])] for k, f in fronts.items()}
+                     for fronts in (stored, reference))
+        b, w = _front_agreement(got, want, sorted(reference))
+        bitwise, worst = bitwise and b, max(worst, w)
+    print(f"[{smi}] fleet on the card (2 workers, 4 tenants, w0 SIGKILLed mid-epoch): "
+          f"workers up in {started:.3f} s, fleet {fleet_wall:.3f} s; time to recover "
+          f"(the kill, t0's store at epoch {at_kill[-1] if at_kill else None}, to its "
+          f"next stored front) {recovered_at - killed_at:.3f} s; migration {migration['tenants']} w0 -> w1; "
+          f"worker launches {worker_launches}; in-process reference {ref_wall:.3f} s, "
+          f"{launches['offspring']} launches; fronts "
+          f"{'bitwise equal' if bitwise else 'equal'} to the reference (worst relative "
+          f"difference {worst:.3e})")
+    return {"fleet_reference": launches}
+
+
+def cli_on_stores(smi, store, fleet_root):
+    """Phase 18 (e): ``python -m dmosopt_tpu_torch.cli`` analyze and
+    telemetry on the shim's store (``--device cuda``) and ``fleet --dir``
+    on the fleet's directory with that store, in three subprocesses at
+    once; each exits 0."""
+    env = dict(os.environ, PYTHONPATH=os.path.dirname(os.path.abspath(__file__)))
+    commands = {
+        "analyze": ["analyze", "-p", store, "--opt-id", "zdt1_shim", "--device", "cuda"],
+        "telemetry": ["telemetry", "-p", store, "--opt-id", "zdt1_shim",
+                      "--device", "cuda"],
+        "fleet": ["fleet", "--dir", fleet_root, "-p", store, "--as-json"],
+    }
+    t0 = time.perf_counter()
+    procs = {k: subprocess.Popen([sys.executable, "-m", "dmosopt_tpu_torch.cli", *argv],
+                                 stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                 text=True, env=env)
+             for k, argv in commands.items()}
+    outs = {}
+    try:
+        for k, proc in procs.items():
+            outs[k] = proc.communicate(timeout=180)
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    wall = time.perf_counter() - t0
+    for k, proc in procs.items():
+        assert proc.returncode == 0, (k, outs[k][0][-2000:], outs[k][1][-2000:])
+    summary = json.loads(outs["fleet"][0])
+    assert summary["n_runs"] >= 1, summary
+    for k in ("analyze", "telemetry"):
+        print("\n".join(outs[k][0].rstrip().splitlines()[:12]))
+    print(f"[{smi}] cli analyze, telemetry (--device cuda) and fleet --dir on the "
+          f"stores: exit 0 each, {wall:.3f} s for the three at once; the rollup holds "
+          f"{summary['n_runs']} run(s) in {sorted(summary['signatures'])}")
+
+
 def runner_phase(torch, V, smi):
-    """Phase 18: the runner, the shim and the CLI. Returns each run's
-    launches."""
-    import importlib.util
+    """Phase 18: the runner, the shim and the CLI, the fleet on the card
+    and the CLI's store commands. Returns each run's launches."""
+    import shutil
+    import tempfile
 
     out = runner_tiers(torch, V, smi)
-    out["shim_quick_start"] = shim_quick_start(torch, V, smi)
-    out["cli_status_service"] = cli_status(torch, V, smi)
-    print(f"[{smi}] not run on this machine: the fleet (its workers checkpoint to "
-          f"HDF5), the fleet rollup and the CLI's analyze, train, onestep, telemetry "
-          f"and fleet (they read HDF5 stores); h5py importable: "
-          f"{importlib.util.find_spec('h5py') is not None}. The CPU tests hold them "
-          f"(tests/test_torch_fleet.py, tests/test_torch_cli.py).")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_fleet_")
+    try:
+        store = os.path.join(tmp, "shim.h5")
+        out["shim_quick_start"] = shim_quick_start(torch, V, smi, store)
+        out["cli_status_service"] = cli_status(torch, V, smi)
+        fleet_root = os.path.join(tmp, "fleet")
+        out.update(fleet_on_card(torch, V, smi, fleet_root))
+        cli_on_stores(smi, store, fleet_root)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
     return out
 
 
@@ -3706,7 +4078,8 @@ def main() -> int:
         kernels.append({
             "name": rep["name"], "route": rep["route"], "source": rep["source"],
             "replaces": rep["replaces"], "launches": launches[name],
-            "launches_file_run": launches_file[name],
+            "launches_file_run": launches_file["saved"][name],
+            "launches_file_resumed_run": launches_file["resumed"][name],
             "launches_many_objective_run": launches_many[name],
             "launches_lorenz_run": launches_lorenz[name],
             "launches_constrained_run": launches_constrained[name],

@@ -24,8 +24,9 @@ The four commands that compute (`analyze`, `train`, `onestep`,
 rule: raising without a card). `train` persists its surrogate with
 `torch.save` (`save_surrogate`; `load_surrogate` reads it back) where
 the JAX package dumps it with joblib. Importing this module loads
-neither click nor jax; the store commands import h5py only when they
-read a store.
+neither click nor jax; the store commands read stores through the
+port's own HDF5 reader (`dmosopt_tpu_torch.utils.h5file`), so no
+command needs h5py.
 """
 
 from __future__ import annotations

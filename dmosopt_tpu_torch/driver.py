@@ -561,9 +561,9 @@ class DistOptimizer:
     @staticmethod
     def _barrier_after_restore():
         """Every rank has finished reading the store before any appends
-        to it (``dmosopt_tpu/driver.py:562-575``): h5py without SWMR
-        gives a reader no consistency against a concurrent writer. No-op
-        in one process."""
+        to it (``dmosopt_tpu/driver.py:562-575``), so every rank restores
+        the same archive, not one that rank 0's first append already
+        grew. No-op in one process."""
         if process_count() == 1:
             return
         import torch.distributed as dist

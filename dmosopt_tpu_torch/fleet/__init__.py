@@ -10,7 +10,8 @@ service's crash-safe checkpoints as the wire format — a SIGKILLed
 worker's tenants resume on a survivor bitwise-equal to an uninterrupted
 run, under an ownership lease that makes double adoption impossible
 (docs/robustness.md "Fleet failure model"). The checkpoints are HDF5
-files, so a fleet needs h5py.
+files, read and written by the port's own module
+(`dmosopt_tpu_torch.utils.h5file`), so a fleet needs no h5py.
 
 Import surface: the supervisor side builds no service; the worker
 harness imports the service stack and is meant to run as

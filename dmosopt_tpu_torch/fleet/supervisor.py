@@ -572,10 +572,11 @@ class FleetSupervisor:
         lease check sufficient: there is never a live process behind a
         checkpoint a survivor adopts."""
         touch_flag(os.path.join(w.dir, FENCE_FILE))
-        if w.proc is not None and w.proc.poll() is None:
-            deadline = time.monotonic() + self.liveness.fence_grace
-            while w.proc.poll() is None and time.monotonic() < deadline:
-                time.sleep(0.05)
+        if w.proc is not None:
+            if w.proc.poll() is None:
+                deadline = time.monotonic() + self.liveness.fence_grace
+                while w.proc.poll() is None and time.monotonic() < deadline:
+                    time.sleep(0.05)
             if w.proc.poll() is None:
                 self.logger.warning(
                     f"fenced worker {w.id!r} still running after "
@@ -583,6 +584,9 @@ class FleetSupervisor:
                 )
                 w.proc.kill()
                 w.proc.wait(timeout=30.0)
+            # recorded also when the process finished exiting between
+            # the liveness round and the fence (a SIGKILLed process
+            # that held a CUDA context takes a while to exit)
             w.exit_code = w.proc.returncode
         w.state = "fenced" if w.exit_code == EXIT_FENCED else "dead"
 

@@ -28,8 +28,9 @@ supervision loop:
    (adopt a dead worker's checkpoint under the lease protocol);
 5. **step** the service when it has tenants, else idle-sleep;
 6. **heartbeat** — atomically publish ``status.json`` (seq, ts,
-   exporter port, adoption/lease-conflict accounting, the full
-   introspect snapshot).
+   exporter port, adoption/lease-conflict accounting, the process's
+   kernel launch counts since it started, the full introspect
+   snapshot).
 
 Run as ``python -m dmosopt_tpu_torch.fleet.worker --fleet-dir D
 --worker-id w0 --device cuda``; the supervisor spawns exactly that. The
@@ -129,6 +130,8 @@ class WorkerHarness:
     # ------------------------------------------------------------ status
 
     def write_status(self, state: str) -> None:
+        from dmosopt_tpu_torch.ops.variation import KERNEL_LAUNCHES
+
         snap = self.service.introspect()
         tenants = {
             t["opt_id"]: {
@@ -155,6 +158,7 @@ class WorkerHarness:
                 "adoptions": self._adoptions,
                 "lease_conflicts": self._lease_conflicts,
                 "last_error": self._last_error,
+                "kernel_launches": dict(KERNEL_LAUNCHES),
                 "service": snap,
             },
         )

@@ -8,7 +8,8 @@ ids and JSON attributes for the parameter space, problem parameters,
 names and metadata; per problem, resizable ``uint32`` epoch labels and
 ``float64`` parameter, objective, prediction (and optional feature and
 constraint) logs; per epoch, the surrogate's evaluations, the
-optimizer's parameters and the runtime stats. numpy and h5py only: the
+optimizer's parameters and the runtime stats. numpy and the port's own
+HDF5 reader and writer (`dmosopt_tpu_torch.utils.h5file`) only: the
 callers hand over host arrays.
 
 Layout:
@@ -52,25 +53,15 @@ from dmosopt_tpu_torch.datatypes import (
     ParameterDefn,
     ParameterSpace,
 )
-from dmosopt_tpu_torch.utils import json_default
-
-
-def _require_h5py():
-    try:
-        import h5py
-    except ImportError as e:
-        raise RuntimeError(
-            "h5py is required for HDF5 persistence but is not installed"
-        ) from e
-    return h5py
+from dmosopt_tpu_torch.utils import h5file, json_default
 
 
 def h5_get_group(h, groupname):
-    return h[groupname] if groupname in h.keys() else h.create_group(groupname)
+    return h[groupname] if groupname in h else h.create_group(groupname)
 
 
 def h5_get_dataset(g, dsetname, **kwargs):
-    if dsetname in g.keys():
+    if dsetname in g:
         return g[dsetname]
     kwargs["maxshape"] = (None,) + tuple(kwargs.get("shape", (0,)))[1:]
     return g.create_dataset(dsetname, **kwargs)
@@ -191,8 +182,7 @@ def init_h5(
     surrogate_mean_variance: bool = False,
 ):
     """Create the run's group and its problem-definition attributes."""
-    h5py = _require_h5py()
-    with h5py.File(fpath, "a") as h5:
+    with h5file.File(fpath, "a") as h5:
         opt_grp = h5_get_group(h5, opt_id)
         if random_seed is not None:
             opt_grp["random_seed"] = random_seed
@@ -231,8 +221,7 @@ def save_to_h5(
 ):
     """Append finished evaluations: ``evals[problem_id]`` is (epochs, x,
     y, f, c, predictions), each a list of per-row host values."""
-    h5py = _require_h5py()
-    with h5py.File(fpath, "a") as h5:
+    with h5file.File(fpath, "a") as h5:
         opt_grp = h5_get_group(h5, opt_id)
         for problem_id in problem_ids:
             if problem_id not in evals:
@@ -273,8 +262,7 @@ def save_surrogate_evals_to_h5(
     y_sm, fpath, logger=None,
 ):
     """Store one epoch's surrogate evaluations (the inner EA's points)."""
-    h5py = _require_h5py()
-    with h5py.File(fpath, "a") as h5:
+    with h5file.File(fpath, "a") as h5:
         grp = h5_get_group(h5, f"{opt_id}/{problem_id}/surrogate_evals/{int(epoch)}")
         grp["gen_index"] = np.asarray(gen_index, dtype=np.uint32)
         grp["x"] = np.asarray(x_sm, dtype=np.float64)
@@ -285,8 +273,7 @@ def save_optimizer_params_to_h5(
     opt_id, problem_id, epoch, optimizer_name, optimizer_params, fpath, logger=None
 ):
     """Store one epoch's optimizer hyperparameters as attributes."""
-    h5py = _require_h5py()
-    with h5py.File(fpath, "a") as h5:
+    with h5file.File(fpath, "a") as h5:
         grp = h5_get_group(h5, f"{opt_id}/{problem_id}/optimizer_params/{int(epoch)}")
         grp.attrs["optimizer_name"] = str(optimizer_name)
         for k, v in (optimizer_params or {}).items():
@@ -300,8 +287,7 @@ def save_optimizer_params_to_h5(
 
 def save_stats_to_h5(opt_id, problem_id, epoch, fpath, logger=None, stats=None):
     """Store one epoch's runtime stats as attributes."""
-    h5py = _require_h5py()
-    with h5py.File(fpath, "a") as h5:
+    with h5file.File(fpath, "a") as h5:
         grp = h5_get_group(h5, f"{opt_id}/{problem_id}/optimizer_stats/{int(epoch)}")
         for k, v in (stats or {}).items():
             try:
@@ -315,16 +301,14 @@ def save_telemetry_to_h5(opt_id, epoch, summary, fpath, logger=None):
     under ``/{opt_id}/telemetry``, one JSON attribute keyed by the epoch
     label (``dmosopt_tpu/storage.py:385``); a resumed run that lands on
     the same epoch overwrites it."""
-    h5py = _require_h5py()
-    with h5py.File(fpath, "a") as h5:
+    with h5file.File(fpath, "a") as h5:
         _json_attr(h5_get_group(h5, f"{opt_id}/telemetry"), str(int(epoch)), summary)
 
 
 def load_telemetry_from_h5(fpath, opt_id) -> Dict[int, Dict]:
     """Every stored epoch summary, ``{epoch: summary}`` (empty without
     the group)."""
-    h5py = _require_h5py()
-    with h5py.File(fpath, "r") as h5:
+    with h5file.File(fpath, "r") as h5:
         key = f"{opt_id}/telemetry"
         if key not in h5:
             return {}
@@ -333,8 +317,7 @@ def load_telemetry_from_h5(fpath, opt_id) -> Dict[int, Dict]:
 
 
 def _save_json_dataset(group, epoch, items, fpath):
-    h5py = _require_h5py()
-    with h5py.File(fpath, "a") as h5:
+    with h5file.File(fpath, "a") as h5:
         grp = h5_get_group(h5, group)
         key = str(int(epoch))
         if key in grp:
@@ -343,9 +326,8 @@ def _save_json_dataset(group, epoch, items, fpath):
 
 
 def _load_json_datasets(group, fpath) -> Dict[int, list]:
-    h5py = _require_h5py()
     out: Dict[int, list] = {}
-    with h5py.File(fpath, "r") as h5:
+    with h5file.File(fpath, "r") as h5:
         grp = h5.get(group)
         if grp is None:
             return out
@@ -388,8 +370,7 @@ def save_refit_state_to_h5(opt_id, problem_id, state, fpath, logger=None):
     ``surrogate_refit`` of ``/{opt_id}/{problem_id}``, overwritten each
     epoch (``dmosopt_tpu/storage.py:475``): only the latest converged
     hyperparameters seed a resumed run."""
-    h5py = _require_h5py()
-    with h5py.File(fpath, "a") as h5:
+    with h5file.File(fpath, "a") as h5:
         grp = h5_get_group(h5, f"{opt_id}/{problem_id}")
         _json_attr(grp, "surrogate_refit", state)
 
@@ -400,8 +381,7 @@ def save_refit_state_to_h5(opt_id, problem_id, state, fpath, logger=None):
 def load_refit_state_from_h5(fpath, opt_id, problem_id) -> Optional[Dict]:
     """The stored warm-refit state dict of a problem, or None when the
     store has none (a fresh run, cold mode, or an older store)."""
-    h5py = _require_h5py()
-    with h5py.File(fpath, "r") as h5:
+    with h5file.File(fpath, "r") as h5:
         key = f"{opt_id}/{problem_id}"
         if key not in h5:
             return None
@@ -415,10 +395,9 @@ def save_front_to_h5(
     streaming artifact of the ask/tell service (dmosopt_tpu.service):
     `/{opt_id}/fronts/{epoch}/x|y` plus column-name attrs. Latest epoch
     wins on re-write (a resumed tenant re-streams its current front)."""
-    h5py = _require_h5py()
     x = np.asarray(x, dtype=np.float32)
     y = np.asarray(y, dtype=np.float32)
-    with h5py.File(fpath, "a") as h5:
+    with h5file.File(fpath, "a") as h5:
         grp = h5_get_group(h5, f"{opt_id}/fronts/{int(epoch)}")
         for name, arr in (("x", x), ("y", y)):
             if name in grp:
@@ -440,9 +419,8 @@ def save_front_to_h5(
 def load_fronts_from_h5(fpath, opt_id):
     """Read back every epoch front `save_front_to_h5` stored for
     `opt_id`, as {epoch: (x, y)} ascending by epoch."""
-    h5py = _require_h5py()
     out = {}
-    with h5py.File(fpath, "r") as h5:
+    with h5file.File(fpath, "r") as h5:
         grp = h5.get(f"{opt_id}/fronts")
         if grp is None:
             return out
@@ -481,9 +459,8 @@ def save_service_checkpoint_to_h5(payload: Dict, fpath, logger=None):
     """
     import os
 
-    h5py = _require_h5py()
     tmp = fpath + ".tmp"
-    with h5py.File(tmp, "w") as h5:
+    with h5file.File(tmp, "w") as h5:
         h5.attrs["format"] = "dmosopt_tpu.service_checkpoint"
         h5.attrs["version"] = SERVICE_CHECKPOINT_VERSION
         _json_attr(h5, "service", payload.get("service", {}))
@@ -534,8 +511,7 @@ def claim_service_checkpoint(
     — reads the new owner, fails the expected-owner check, and raises
     `CheckpointLeaseError` instead of adopting the same tenants twice.
     Returns the stored service metadata as it was BEFORE the claim."""
-    h5py = _require_h5py()
-    with h5py.File(fpath, "r+") as h5:
+    with h5file.File(fpath, "r+") as h5:
         fmt = h5.attrs.get("format")
         if fmt != "dmosopt_tpu.service_checkpoint":
             raise RuntimeError(
@@ -573,9 +549,8 @@ def load_service_checkpoint_from_h5(fpath) -> Dict:
     """Read back a `save_service_checkpoint_to_h5` snapshot as
     ``{"service": dict, "tenants": {key: {"config", "state",
     "arrays"}}}`` (arrays as numpy, absent columns as None)."""
-    h5py = _require_h5py()
     out: Dict = {"service": {}, "tenants": {}}
-    with h5py.File(fpath, "r") as h5:
+    with h5file.File(fpath, "r") as h5:
         fmt = h5.attrs.get("format")
         if fmt != "dmosopt_tpu.service_checkpoint":
             raise RuntimeError(
@@ -599,9 +574,8 @@ def load_service_checkpoint_from_h5(fpath) -> Dict:
 def h5_load_raw(fpath, opt_id):
     """Everything stored for ``opt_id``: the problem definition and, per
     problem, the evaluation log as `EvalEntry` rows."""
-    h5py = _require_h5py()
     out = {}
-    with h5py.File(fpath, "r") as h5:
+    with h5file.File(fpath, "r") as h5:
         opt_grp = h5[opt_id]
         out["random_seed"] = (
             int(opt_grp["random_seed"][()]) if "random_seed" in opt_grp else None

@@ -1,8 +1,8 @@
 """Fleet telemetry rollup: cross-run aggregation of persisted telemetry.
 
 Port of ``dmosopt_tpu/telemetry/fleet.py``. It reads stores through the
-port's `storage` loaders (h5py imported only inside `scan_store` and
-those loaders) and emits the JAX package's JSON layout, format string
+port's `storage` loaders and the port's own HDF5 reader
+(`dmosopt_tpu_torch.utils.h5file`), and emits the JAX package's JSON layout, format string
 and version included, so both packages' summaries of the same stores
 are the same document.
 
@@ -272,13 +272,9 @@ def scan_store(path: str) -> List[Dict[str, Any]]:
     """All run records in one HDF5 file — a results store yields one
     record per stored ``opt_id``, a service checkpoint one per stored
     tenant. Files of neither format yield an empty list."""
-    try:
-        import h5py
-    except ImportError as e:  # pragma: no cover
-        raise RuntimeError(
-            "h5py is required for the fleet rollup but is not installed"
-        ) from e
-    with h5py.File(path, "r") as h5:
+    from dmosopt_tpu_torch.utils import h5file
+
+    with h5file.File(path, "r") as h5:
         if h5.attrs.get("format") == "dmosopt_tpu.service_checkpoint":
             checkpoint = True
         else:

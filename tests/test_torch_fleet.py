@@ -257,6 +257,36 @@ def test_heartbeat_hysteresis_and_checkpointless_migration(tmp_path):
     sup._closed = True
 
 
+def test_exit_code_recorded_when_the_process_exits_before_the_fence(tmp_path):
+    """A worker declared dead on its heartbeat whose process finishes
+    exiting before the fence (a SIGKILLed process that held a CUDA
+    context takes a while to exit) keeps its exit code in the summary."""
+
+    class Exiting:
+        """A process that is still running at the liveness round and has
+        exited, SIGKILLed, by the fence."""
+
+        pid, returncode, _polls = 1, None, 0
+
+        def poll(self):
+            self._polls += 1
+            if self._polls > 1:
+                self.returncode = -9
+            return self.returncode
+
+    sup = _unspawned(tmp_path, liveness=LivenessPolicy(
+        heartbeat_timeout=5.0, confirm_rounds=1, fence_grace=0.1))
+    sup.workers["w0"].proc = Exiting()
+    _write_status(tmp_path, "w0", ts=time.time() - 600.0)
+    _write_status(tmp_path, "w1")
+    events = sup.monitor_once()
+    assert events[0]["cause"].startswith("heartbeat age")
+    assert sup.summary()["workers"]["w0"]["exit_code"] == -9
+    assert sup.workers["w0"].state == "dead"
+    sup.workers["w0"].proc = None
+    sup._closed = True
+
+
 def test_supervisor_and_worker_default_to_cuda(tmp_path):
     """No fall-back that hides the device: a supervisor or a worker
     asked for CUDA on a machine without a card raises."""
