@@ -59,7 +59,7 @@ from dmosopt_tpu_torch.datatypes import EpochResults, OptHistory
 from dmosopt_tpu_torch.models import Model
 from dmosopt_tpu_torch.ops import crowding_distance, sort_mo
 from dmosopt_tpu_torch.ops.dominance import rank_route
-from dmosopt_tpu_torch.telemetry import phase_scope, span_scope
+from dmosopt_tpu_torch.telemetry import loop_parts, phase_scope, record_parts, span_scope
 from dmosopt_tpu_torch.telemetry.hooks import generation_loop
 from dmosopt_tpu_torch.utils.device import resolve_device
 from dmosopt_tpu_torch.utils.prng import as_torch_generator
@@ -203,6 +203,7 @@ def _optimize_on_device(
     logger=None,
     stats: Optional[Dict[str, Any]] = None,
     mesh=None,
+    telemetry=None,
 ):
     """The inner EA loop on the optimizer's device (reference
     `_optimize_on_device`, ``dmosopt_tpu/moasmo.py:288``, scanned XLA
@@ -236,6 +237,10 @@ def _optimize_on_device(
     for the device to finish the queued generations
     (``termination_wait_s``).
 
+    ``telemetry``, when live, times two parts of each generation
+    (`telemetry.loop_parts`): ``ea_variation`` (the offspring and their
+    clamp) and ``ea_survival`` (the update).
+
     Returns (x_new, y_new, gen_counts): the evaluated offspring flattened
     to (N, cols) numpy plus the per-generation offspring counts."""
     bounds = optimizer.bounds
@@ -243,6 +248,7 @@ def _optimize_on_device(
     adaptive = optimizer.adaptive_population_size
     xs, ys, counts = [], [], []
     sharded_rank = _shard_if_divisible(optimizer, mesh, logger)
+    variation, survival = loop_parts(telemetry, "ea_variation", "ea_survival")
 
     def run_chunk(n):
         """n generations; returns the offspring they evaluated."""
@@ -252,10 +258,12 @@ def _optimize_on_device(
                  else contextlib.nullcontext())
         with generation_loop(), route:
             for _ in range(n):
-                x_gen, state = optimizer.generate_strategy(generator, state)
-                x_gen = torch.clamp(x_gen, lb, ub)
+                with variation:
+                    x_gen, state = optimizer.generate_strategy(generator, state)
+                    x_gen = torch.clamp(x_gen, lb, ub)
                 y_gen = eval_fn(x_gen)
-                state = optimizer.update_strategy(state, x_gen, y_gen)
+                with survival:
+                    state = optimizer.update_strategy(state, x_gen, y_gen)
                 xs.append(x_gen)
                 ys.append(y_gen)
                 counts.append(x_gen.shape[0])
@@ -318,6 +326,7 @@ def _optimize_on_device(
                         f"{optimizer.name}: population capacity grown to "
                         f"{optimizer.capacity}"
                     )
+    record_parts(telemetry, [variation, survival], "generations")
     reasons = getattr(termination, "stop_reasons", lambda: [])()
     if termination is not None and logger is not None:
         logger.info(
@@ -361,6 +370,7 @@ def optimize(
     optimize_mean_variance: bool = False,
     stats: Optional[Dict[str, Any]] = None,
     mesh=None,
+    telemetry=None,
     **kwargs,
 ):
     """Inner multi-objective optimization against the (surrogate) model,
@@ -372,7 +382,8 @@ def optimize(
     both branches (`_optimize_on_device`; per generation on the
     real-objective branch, reference ``dmosopt_tpu/moasmo.py:685-700``);
     ``stats`` receives the surrogate branch's loop statistics; ``mesh``
-    shards the surrogate branch's loop (`_optimize_on_device`).
+    shards the surrogate branch's loop and ``telemetry`` times its
+    generations' parts (`_optimize_on_device`).
 
     The numpy stream of ``local_random`` is consumed in the reference's
     order: loop generator, initial design, optimizer state.
@@ -412,7 +423,7 @@ def optimize(
             optimizer, eval_fn, num_generations, generator,
             termination=termination,
             termination_check_interval=termination_check_interval,
-            logger=logger, stats=stats, mesh=mesh,
+            logger=logger, stats=stats, mesh=mesh, telemetry=telemetry,
         )
         x_new, y_new = [x_dev], [y_dev]
         gen_indexes.extend(
@@ -927,7 +938,7 @@ def epoch(
         initial=(x_0, y_0), popsize=pop, local_random=local_random,
         termination=termination, logger=logger, stats=stats,
         optimize_mean_variance=optimize_mean_variance, mesh=mesh,
-        **optimizer_kwargs_,
+        telemetry=telemetry, **optimizer_kwargs_,
     )
     # a live span may not be held across a yield (the driver opens its
     # evaluation spans meanwhile): the surrogate path, which never

@@ -427,121 +427,122 @@ class OptimizationService:
         `run()`: the port evaluates no JAX objective. ``eval_policy``
         overrides the service-wide fault policy for this tenant
         (docs/robustness.md). Returns a `TenantHandle` streaming the
-        tenant's fronts."""
-        if self._closed:
-            raise RuntimeError("service is closed")
-        if jax_objective:
-            raise NotImplementedError(
-                "jax_objective is not ported to dmosopt_tpu_torch; pass a "
-                "batched torch objective with torch_objective=True"
-            )
-        if surrogate_method_name is None:
-            raise ValueError(
-                "the service runs surrogate-mode epochs; "
-                "surrogate_method_name=None is not supported"
-            )
-        if obj_fun is None and objective_ref:
-            # the fleet wire format: a subprocess worker receives an
-            # importable "module:attr" name instead of a closure
-            from dmosopt_tpu_torch.utils import import_object
+        tenant's fronts. The whole call is one ``submit`` span."""
+        with span_scope(self.telemetry, "submit"):
+            if self._closed:
+                raise RuntimeError("service is closed")
+            if jax_objective:
+                raise NotImplementedError(
+                    "jax_objective is not ported to dmosopt_tpu_torch; pass a "
+                    "batched torch objective with torch_objective=True"
+                )
+            if surrogate_method_name is None:
+                raise ValueError(
+                    "the service runs surrogate-mode epochs; "
+                    "surrogate_method_name=None is not supported"
+                )
+            if obj_fun is None and objective_ref:
+                # the fleet wire format: a subprocess worker receives an
+                # importable "module:attr" name instead of a closure
+                from dmosopt_tpu_torch.utils import import_object
 
-            obj_fun = import_object(objective_ref)
-        policy = EvalPolicy.from_spec(eval_policy) or self.eval_policy
-        tenant_id = next(self._ids)
-        opt_id = opt_id or f"tenant_{tenant_id}"
-        handle = TenantHandle(tenant_id, opt_id)
+                obj_fun = import_object(objective_ref)
+            policy = EvalPolicy.from_spec(eval_policy) or self.eval_policy
+            tenant_id = next(self._ids)
+            opt_id = opt_id or f"tenant_{tenant_id}"
+            handle = TenantHandle(tenant_id, opt_id)
 
-        param_space = ParameterSpace.from_dict(space)
-        eval_fun = partial(
-            eval_obj_fun_sp, obj_fun, None, param_space, False, None, 0
-        )
-        prob = OptProblem(
-            param_space.parameter_names, list(objective_names), None,
-            param_space,
-        )
-        owns_evaluator = evaluator is None
-        if evaluator is None:
-            evaluator = (
-                TorchBatchEvaluator(obj_fun, self.device, problem_ids=[0])
-                if torch_objective
-                else HostFunEvaluator(eval_fun)
+            param_space = ParameterSpace.from_dict(space)
+            eval_fun = partial(
+                eval_obj_fun_sp, obj_fun, None, param_space, False, None, 0
             )
-            # owned evaluators report into the service's telemetry
-            # (eval_timeouts/retries/failures_total — the degradation
-            # accounting the policy layer is judged by)
-            evaluator.telemetry = self.telemetry
-        if self._fault_plan is not None:
-            from dmosopt_tpu_torch.testing.faults import FaultyEvaluator
+            prob = OptProblem(
+                param_space.parameter_names, list(objective_names), None,
+                param_space,
+            )
+            owns_evaluator = evaluator is None
+            if evaluator is None:
+                evaluator = (
+                    TorchBatchEvaluator(obj_fun, self.device, problem_ids=[0])
+                    if torch_objective
+                    else HostFunEvaluator(eval_fun)
+                )
+                # owned evaluators report into the service's telemetry
+                # (eval_timeouts/retries/failures_total — the degradation
+                # accounting the policy layer is judged by)
+                evaluator.telemetry = self.telemetry
+            if self._fault_plan is not None:
+                from dmosopt_tpu_torch.testing.faults import FaultyEvaluator
 
-            evaluator = FaultyEvaluator(evaluator, self._fault_plan, opt_id)
-        strat = DistOptStrategy(
-            prob,
-            n_initial=n_initial,
-            initial_method=initial_method,
-            population_size=int(population_size),
-            num_generations=int(num_generations),
-            resample_fraction=float(resample_fraction),
-            optimizer_name=optimizer_name,
-            optimizer_kwargs=optimizer_kwargs,
-            surrogate_method_name=surrogate_method_name,
-            surrogate_method_kwargs=surrogate_method_kwargs,
-            surrogate_refit=surrogate_refit,
-            surrogate_refit_state=(
-                (_restore or {}).get("state", {}).get("refit")
-            ),
-            local_random=np.random.default_rng(random_seed),
-            logger=self.logger,
-            device=self.device,
-            telemetry=None,  # per-bucket service telemetry only
-        )
-        # everything a fresh process needs to rebuild this tenant from a
-        # checkpoint (the objective itself is re-supplied to `resume`)
-        submit_spec = {
-            "space": space,
-            "objective_names": list(objective_names),
-            "torch_objective": bool(torch_objective),
-            "n_epochs": int(n_epochs),
-            "population_size": int(population_size),
-            "num_generations": int(num_generations),
-            "n_initial": int(n_initial),
-            "initial_method": initial_method,
-            "resample_fraction": float(resample_fraction),
-            "optimizer_name": optimizer_name,
-            "optimizer_kwargs": optimizer_kwargs,
-            "surrogate_method_name": surrogate_method_name,
-            "surrogate_method_kwargs": surrogate_method_kwargs,
-            "random_seed": random_seed,
-            "file_path": file_path,
-            "objective_ref": objective_ref,
-            "eval_policy": asdict(policy) if policy is not None else None,
-            "surrogate_refit": (
-                surrogate_refit
-                if isinstance(surrogate_refit, (str, dict, type(None)))
-                else None  # controller/config objects are not JSON-able
-            ),
-        }
-        tenant = _Tenant(
-            handle=handle, strat=strat, evaluator=evaluator,
-            owns_evaluator=owns_evaluator, n_epochs=int(n_epochs),
-            file_path=file_path,
-            param_names=tuple(param_space.parameter_names),
-            objective_names=tuple(objective_names),
-            policy=policy,
-            host_like=hasattr(evaluator, "eval_fun"),
-            submit_spec=submit_spec,
-        )
-        if _restore is not None:
-            self._apply_restore(tenant, _restore)
-        with self._lock:
-            self._pending.append(tenant)
-        if self.telemetry:
-            if _restore is not None and _restore.get("adopted"):
-                self.telemetry.inc("tenants_adopted_total")
-            elif _restore is not None:
-                self.telemetry.inc("tenants_resumed_total")
-            else:
-                self.telemetry.inc("tenants_submitted_total")
-        return handle
+                evaluator = FaultyEvaluator(evaluator, self._fault_plan, opt_id)
+            strat = DistOptStrategy(
+                prob,
+                n_initial=n_initial,
+                initial_method=initial_method,
+                population_size=int(population_size),
+                num_generations=int(num_generations),
+                resample_fraction=float(resample_fraction),
+                optimizer_name=optimizer_name,
+                optimizer_kwargs=optimizer_kwargs,
+                surrogate_method_name=surrogate_method_name,
+                surrogate_method_kwargs=surrogate_method_kwargs,
+                surrogate_refit=surrogate_refit,
+                surrogate_refit_state=(
+                    (_restore or {}).get("state", {}).get("refit")
+                ),
+                local_random=np.random.default_rng(random_seed),
+                logger=self.logger,
+                device=self.device,
+                telemetry=None,  # per-bucket service telemetry only
+            )
+            # everything a fresh process needs to rebuild this tenant from a
+            # checkpoint (the objective itself is re-supplied to `resume`)
+            submit_spec = {
+                "space": space,
+                "objective_names": list(objective_names),
+                "torch_objective": bool(torch_objective),
+                "n_epochs": int(n_epochs),
+                "population_size": int(population_size),
+                "num_generations": int(num_generations),
+                "n_initial": int(n_initial),
+                "initial_method": initial_method,
+                "resample_fraction": float(resample_fraction),
+                "optimizer_name": optimizer_name,
+                "optimizer_kwargs": optimizer_kwargs,
+                "surrogate_method_name": surrogate_method_name,
+                "surrogate_method_kwargs": surrogate_method_kwargs,
+                "random_seed": random_seed,
+                "file_path": file_path,
+                "objective_ref": objective_ref,
+                "eval_policy": asdict(policy) if policy is not None else None,
+                "surrogate_refit": (
+                    surrogate_refit
+                    if isinstance(surrogate_refit, (str, dict, type(None)))
+                    else None  # controller/config objects are not JSON-able
+                ),
+            }
+            tenant = _Tenant(
+                handle=handle, strat=strat, evaluator=evaluator,
+                owns_evaluator=owns_evaluator, n_epochs=int(n_epochs),
+                file_path=file_path,
+                param_names=tuple(param_space.parameter_names),
+                objective_names=tuple(objective_names),
+                policy=policy,
+                host_like=hasattr(evaluator, "eval_fun"),
+                submit_spec=submit_spec,
+            )
+            if _restore is not None:
+                self._apply_restore(tenant, _restore)
+            with self._lock:
+                self._pending.append(tenant)
+            if self.telemetry:
+                if _restore is not None and _restore.get("adopted"):
+                    self.telemetry.inc("tenants_adopted_total")
+                elif _restore is not None:
+                    self.telemetry.inc("tenants_resumed_total")
+                else:
+                    self.telemetry.inc("tenants_submitted_total")
+            return handle
 
     # -------------------------------------------------------------- step
 
@@ -977,8 +978,9 @@ class OptimizationService:
                     continue
                 strategies[tid] = t.strat
                 epochs[tid] = t.epochs_run
-            # no own span: the bucket runs open their gp_fit / ea_scan
-            # spans (with tenant_cost children) directly under `epoch`
+            # no own span: the tenant plans open their `plan` spans and
+            # the bucket runs their gp_fit / ea_scan spans (with
+            # tenant_cost children) directly under `epoch`
             with self._step_phase(phases, "fit"):
                 initialize_epochs_batched(
                     strategies, epochs, min_bucket=self.min_bucket,

@@ -10,7 +10,10 @@ background writer), so a run's observability has one switchboard:
 - `Telemetry.log` (`EventLog`): typed per-epoch and per-phase records in
   a bounded ring buffer, with an optional JSONL sink.
 - `Telemetry.tracer` (`Tracer`): host spans (epoch, gp_fit, ea_scan,
-  resample, eval_dispatch, eval_drain, h5_write, tenant_cost).
+  resample, eval_dispatch, eval_drain, h5_write, tenant_cost; the port
+  alone also opens ea_variation and ea_survival for the parts of each
+  generation, plan around the tenant core's plans, and submit: see
+  `tracing`).
 - ``torch.profiler`` captures of the epochs that ``profile_epochs``
   names, into ``profile_dir`` (`Telemetry.device_capture`), each joined
   into `Telemetry.ledger`, the device-time ledger.
@@ -47,6 +50,7 @@ from dmosopt_tpu_torch.telemetry.health import (  # noqa: F401
 )
 from dmosopt_tpu_torch.telemetry.registry import MetricsRegistry  # noqa: F401
 from dmosopt_tpu_torch.telemetry.tracing import (  # noqa: F401
+    LoopPart,
     Span,
     Tracer,
     annotations_armed,
@@ -396,6 +400,28 @@ def span_scope(tel: Optional["Telemetry"], name: str, **labels):
     if tel:
         return tel.span(name, **labels)
     return contextlib.nullcontext(None)
+
+
+# the context `loop_parts` hands out without live telemetry: one shared
+# instance (a null context holds no state), so a part entered once a
+# generation allocates nothing on a telemetry-free run
+_NO_SPAN = contextlib.nullcontext(None)
+
+
+def loop_parts(tel: Optional["Telemetry"], *names: str) -> list:
+    """One `tracing.LoopPart` per name when telemetry is live (hand them
+    to `record_parts` when the loop ends), else the shared null context
+    per name: a telemetry-free loop makes no tracer call."""
+    if tel and tel.tracer is not None:
+        return [LoopPart(tel.tracer, name) for name in names]
+    return [_NO_SPAN] * len(names)
+
+
+def record_parts(tel: Optional["Telemetry"], parts: list, count_label: str):
+    """`Tracer.record_parts` for `loop_parts`'s parts when telemetry is
+    live, else nothing."""
+    if tel and tel.tracer is not None:
+        tel.tracer.record_parts(parts, count_label)
 
 
 def record_device_memory(tel: Optional["Telemetry"], device=None):

@@ -32,6 +32,22 @@ Device alignment: while `Telemetry.device_capture` runs a
 also enters a ``torch.profiler.record_function`` of the same name, so
 host spans line up with the card's kernels in the captured trace.
 
+Spans the port opens and the JAX package does not (its compiled scan
+and tenant core have no host loop to time), `PORT_SPANS`; the JAX
+package's catalog lists the rest:
+
+- ``ea_variation`` / ``ea_survival``: one generation's offspring and
+  their clamp, and its survival (``update_strategy``, plus the tenant
+  core's freeze), children of ``ea_scan``. They are `LoopPart`s: while
+  a capture is armed each generation opens one live span of each
+  (annotated on the trace); otherwise the loop adds up their seconds
+  and `Tracer.record_parts` records one closed span of each at the
+  loop's end, labelled ``generations``.
+- ``plan``: the tenant core's pass 1 over a step's tenants, and each
+  batched tenant's plan (labelled ``tenant``).
+- ``submit``: one `OptimizationService.submit` call, on the caller's
+  thread.
+
 Discipline: spans open and close on the host where the port already
 synchronizes or between launches; a span adds no device sync. Spans must
 also never be held across a generator ``yield`` that hands control to
@@ -48,8 +64,9 @@ import json
 import threading
 import time
 import uuid
+from collections import deque
 from dataclasses import dataclass, field
-from typing import Any, Dict, List, Optional
+from typing import Any, Deque, Dict, List, Optional
 
 from dmosopt_tpu_torch.utils import json_default
 
@@ -92,6 +109,10 @@ class Span:
         return out
 
 
+#: the port's own spans (the module docstring says where each opens);
+#: every other span name is in the JAX package's catalog
+PORT_SPANS = ("ea_variation", "ea_survival", "plan", "submit")
+
 # armed device captures (`Telemetry.device_capture`); spans enter a
 # profiler annotation only while this is above 0
 _ARMED = 0
@@ -122,6 +143,42 @@ def _trace_annotation(name: str):
     return record_function(name)
 
 
+class LoopPart:
+    """One part of a loop's body, timed over the whole loop: enter it
+    with ``with part:`` in every iteration. Unarmed, an entry reads the
+    clock twice and adds the seconds up (`Tracer.record_parts` records
+    the sum when the loop ends); while a capture is armed it opens a
+    live span of the part's name instead, with its annotation, so the
+    captured trace and the device ledger see every iteration. Reused
+    across iterations: the loop allocates nothing a turn."""
+
+    __slots__ = ("tracer", "name", "seconds", "count", "_t0", "_live")
+
+    def __init__(self, tracer: "Tracer", name: str):
+        self.tracer = tracer
+        self.name = name
+        self.seconds = 0.0  # unarmed iterations' time, summed
+        self.count = 0  # unarmed iterations
+        self._t0 = 0.0
+        self._live = None
+
+    def __enter__(self):
+        if _ARMED:
+            self._live = self.tracer.span(self.name)
+            self._live.__enter__()
+        else:
+            self._t0 = time.perf_counter()
+
+    def __exit__(self, *exc):
+        live = self._live
+        if live is not None:
+            self._live = None
+            return live.__exit__(*exc)
+        self.seconds += time.perf_counter() - self._t0
+        self.count += 1
+        return False
+
+
 class Tracer:
     """Collects host-side spans; exports Chrome trace-event JSON.
 
@@ -146,7 +203,7 @@ class Tracer:
         self.trace_id = trace_id or uuid.uuid4().hex[:16]
         self.max_spans = int(max_spans)
         self.spans_dropped = 0
-        self._spans: List[Span] = []
+        self._spans: Deque[Span] = deque()
         self._drained = 0  # index of the first span `drain` has not seen
         self._ids = itertools.count(1)
         self._last_id = 0  # highest id handed out (for `mark`)
@@ -165,6 +222,15 @@ class Tracer:
             st = self._tls.stack = []
         return st
 
+    def _native_id(self) -> int:
+        """This thread's native id, read once a thread: the read is a
+        system call (``gettid``), which cost about 90 µs a call on an
+        H100 machine's host while the card ran."""
+        nid = getattr(self._tls, "native", None)
+        if nid is None:
+            nid = self._tls.native = threading.get_native_id()
+        return nid
+
     def _append(self, sp: Span) -> bool:
         with self._lock:
             if len(self._spans) >= self.max_spans:
@@ -174,8 +240,8 @@ class Tracer:
                 # window — a consumer investigating a slowdown needs
                 # the run's tail, not its start — and per-epoch
                 # persistence never goes dark. Evictions are counted
-                # in `spans_dropped`.
-                self._spans.pop(0)
+                # in `spans_dropped`; the deque makes each one O(1).
+                self._spans.popleft()
                 if self._drained > 0:
                     self._drained -= 1
                 self.spans_dropped += 1
@@ -200,7 +266,7 @@ class Tracer:
             t_start=time.perf_counter(),
             labels={k: v for k, v in labels.items() if v is not None},
             thread=threading.get_ident(),
-            native_thread=threading.get_native_id(),
+            native_thread=self._native_id(),
         )
         stack.append(sp)
         self._append(sp)
@@ -238,9 +304,25 @@ class Tracer:
             t_end=float(t_end),
             labels={k: v for k, v in labels.items() if v is not None},
             thread=threading.get_ident(),
-            native_thread=threading.get_native_id(),
+            native_thread=self._native_id(),
         )
         return sp if self._append(sp) else None
+
+    def record_parts(self, parts: List[LoopPart], count_label: str):
+        """Record each `LoopPart`'s unarmed seconds as one closed span,
+        a child of this thread's innermost open span, labelled with its
+        iteration count under `count_label`. The spans tile the time
+        just before now in the order given (a cost share, like
+        ``tenant_cost``: a part's iterations were interleaved with the
+        others'). A part with no unarmed iteration records nothing."""
+        stack = self._stack()
+        parent = stack[-1] if stack else None
+        t = time.perf_counter() - sum(p.seconds for p in parts)
+        for p in parts:
+            if p.count:
+                self.record_span(p.name, t, t + p.seconds, parent=parent,
+                                 **{count_label: p.count})
+            t += p.seconds
 
     # ----------------------------------------------------------- queries
 
@@ -272,12 +354,14 @@ class Tracer:
         driver persists these per epoch). Spans stay in the export
         buffer — draining never shortens the Chrome export."""
         with self._lock:
+            n_new = len(self._spans) - self._drained
+            undrained = [self._spans.pop() for _ in range(n_new)]
             new, still_open = [], []
-            for sp in self._spans[self._drained:]:
+            for sp in reversed(undrained):
                 (new if sp.t_end is not None else still_open).append(sp)
             # keep still-open spans (e.g. a writer span mid-flight) in
             # the undrained window so a later drain picks them up closed
-            self._spans[self._drained:] = new + still_open
+            self._spans.extend(new + still_open)
             self._drained += len(new)
             return new
 

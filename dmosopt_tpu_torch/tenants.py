@@ -91,7 +91,7 @@ from dmosopt_tpu_torch.moasmo import (
     remove_duplicates,
 )
 from dmosopt_tpu_torch.ops import crowding_distance
-from dmosopt_tpu_torch.telemetry import span_scope
+from dmosopt_tpu_torch.telemetry import loop_parts, record_parts, span_scope
 from dmosopt_tpu_torch.telemetry.hooks import generation_loop
 from dmosopt_tpu_torch.utils.prng import as_torch_generator
 
@@ -338,7 +338,10 @@ def run_bucket_epoch(plans: List[_TenantPlan], telemetry=None, logger=None):
     each tenant's host tail (dedupe against its archive, the
     crowding-distance resample). Returns ``{pid: result}`` in
     `moasmo.epoch`'s surrogate-mode result shape. ``telemetry`` records
-    the bucket's spans, its tenants' cost shares and its counters."""
+    the bucket's spans (``gp_fit``; ``ea_scan``, with the generations'
+    ``ea_variation`` and ``ea_survival`` parts inside it, see
+    `telemetry.loop_parts`; ``resample``), its tenants' cost shares and
+    its counters."""
     T = len(plans)
     d = plans[0].Yn.shape[1]
     n = plans[0].X_unit.shape[1]
@@ -411,15 +414,19 @@ def run_bucket_epoch(plans: List[_TenantPlan], telemetry=None, logger=None):
         active = torch.as_tensor(active, device=dev)
         gens = [p.loop_gen for p in plans]
         xs, ys = [], []
+        variation, survival = loop_parts(telemetry, "ea_variation", "ea_survival")
         with generation_loop():
             for g in range(G_max):
-                x_gen, new = optimizer.generate_strategy(gens, states)
-                x_gen = torch.clamp(x_gen, lb, ub)
+                with variation:
+                    x_gen, new = optimizer.generate_strategy(gens, states)
+                    x_gen = torch.clamp(x_gen, lb, ub)
                 y_gen = batched_eval(x_gen)
-                new = optimizer.update_strategy(new, x_gen, y_gen)
-                states = _freeze(active[g], new, states)
+                with survival:
+                    new = optimizer.update_strategy(new, x_gen, y_gen)
+                    states = _freeze(active[g], new, states)
                 xs.append(x_gen)
                 ys.append(y_gen)
+        record_parts(telemetry, [variation, survival], "generations")
         x_traj = torch.stack(xs).cpu().numpy()  # (G, T, noff, n)
         y_traj = torch.stack(ys).cpu().numpy()
     ea_wall = time.perf_counter() - t_ea0
@@ -542,23 +549,26 @@ def initialize_epochs_batched(
     whose run raises, is reported to it and routed ``"failed"`` while the
     others go on; no bucket is re-run on the sequential path. When None
     (the driver's case) the exception propagates. ``telemetry`` goes to
-    every bucket; an ineligible tenant counts in
+    every bucket and times pass 1 and each batched tenant's plan in
+    ``plan`` spans (the latter labelled ``tenant``; a sequential
+    tenant's epoch opens its own spans); an ineligible tenant counts in
     ``tenants_sequential_total``."""
     epochs = epoch if isinstance(epoch, dict) else {pid: epoch for pid in strategies}
     sigs: Dict[Any, Optional[Tuple]] = {}
-    for pid, strat in strategies.items():
-        strat.open_epoch()
-        reason = batch_eligibility(strat)
-        if reason is None:
-            sigs[pid] = bucket_signature(
-                strat, strat.optimizer_name[0], strat.optimizer_kwargs[0]
-            )
-        else:
-            sigs[pid] = None
-            if logger is not None:
-                logger.info(f"tenant {pid}: sequential path ({reason})")
-            if telemetry:
-                telemetry.inc("tenants_sequential_total")
+    with span_scope(telemetry, "plan"):
+        for pid, strat in strategies.items():
+            strat.open_epoch()
+            reason = batch_eligibility(strat)
+            if reason is None:
+                sigs[pid] = bucket_signature(
+                    strat, strat.optimizer_name[0], strat.optimizer_kwargs[0]
+                )
+            else:
+                sigs[pid] = None
+                if logger is not None:
+                    logger.info(f"tenant {pid}: sequential path ({reason})")
+                if telemetry:
+                    telemetry.inc("tenants_sequential_total")
     counts: Dict[Tuple, int] = {}
     for sig in sigs.values():
         if sig is not None:
@@ -573,8 +583,9 @@ def initialize_epochs_batched(
                 strat.initialize_epoch(epochs[pid])
                 routing[pid] = "sequential"
                 continue
-            name, okw = strat._cycled_optimizer()
-            buckets.setdefault(sig, []).append(_build_plan(pid, strat, name, okw))
+            with span_scope(telemetry, "plan", tenant=str(pid)):
+                name, okw = strat._cycled_optimizer()
+                buckets.setdefault(sig, []).append(_build_plan(pid, strat, name, okw))
             routing[pid] = "batched"
         except Exception as e:
             if on_error is None:
